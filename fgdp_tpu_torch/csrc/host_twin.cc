@@ -1,0 +1,55 @@
+// Host twin of the two CUDA kernels, for the CPU tests only: g++ builds
+// the kernels' own per-job (sw_extend.cuh) and per-read (chain_loop.cuh)
+// logic into a plain C library, run serially, so the logic can be held
+// against the plain PyTorch versions where there is no nvcc. The port's
+// CPU path never calls it; it runs the plain PyTorch versions.
+#include <cstddef>
+#include <vector>
+
+#include "chain_loop.cuh"
+#include "sw_extend.cuh"
+
+struct SerialLanes {
+  int lane() const { return 0; }
+  int width() const { return 1; }
+  int max(int v) const { return v; }
+  bool any(bool v) const { return v; }
+  void sync() const {}
+};
+
+extern "C" int fgdp_sw_extend_host(const int* query, const int* target,
+                                   const int* qlen, const int* tlen,
+                                   const int* h0, int J, int QP, int TP,
+                                   int w, int o_del, int e_del, int o_ins,
+                                   int e_ins, int zdrop, int end_bonus,
+                                   int mat_max, int mat_mis, int mat_amb,
+                                   int* out, long long* cells) {
+  SWParamsC p{o_del, e_del, o_ins, e_ins, zdrop, end_bonus, mat_max,
+              mat_mis, mat_amb};
+  std::vector<int> eh_h(QP + 2), eh_e(QP + 2);
+  for (int j = 0; j < J; ++j) {
+    int res[6];
+    long long c = sw_extend_job(query + (long long)j * QP,
+                                target + (long long)j * TP, QP, TP, qlen[j],
+                                tlen[j], h0[j], w, p, eh_h.data(),
+                                eh_e.data(), 1, res);
+    for (int k = 0; k < 6; ++k) out[(long long)k * J + j] = res[k];
+    if (cells) cells[j] = c;
+  }
+  return 0;
+}
+
+extern "C" int fgdp_chain_loop_host(const int* qbeg, const int* rbeg,
+                                    const int* slen, const int* rid,
+                                    const unsigned char* valid,
+                                    const unsigned char* ovf_in, int B,
+                                    int P, int C, int l_pac, int w,
+                                    int max_chain_gap, int* out, int* n_out,
+                                    unsigned char* ovf_out, int* chain_of) {
+  ChainArgs a{qbeg, rbeg, slen, rid, valid, ovf_in, B, P, C, l_pac, w,
+              max_chain_gap, out, n_out, ovf_out, chain_of};
+  std::vector<int> st((size_t)CH_NFIELDS * C);
+  SerialLanes L;
+  for (int b = 0; b < B; ++b) chain_read(a, b, st.data(), L);
+  return 0;
+}

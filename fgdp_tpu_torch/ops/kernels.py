@@ -1,0 +1,152 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu) is compiled by
+nvcc for sm_90a into its own shared library with a plain C interface
+under build/fgdp_tpu_torch/ at the repository root, and bound with
+ctypes. The build happens at first use (one nvcc per source, all started
+together) and again whenever a source is newer than its library.
+
+The C entry points launch on the stream they are given and return
+cudaGetLastError(); `check` raises when that is not 0.
+
+build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
+per-job and per-read logic as a serial host library, which the CPU tests
+hold against the plain PyTorch versions. The port never runs it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+from ..io.native import BUILD_DIR
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+KERNELS = ("chain_loop", "sw_extend")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+# argument types of each C entry point: every pointer and the stream as
+# c_void_p (ctypes would cut a Python int to 32 bits otherwise)
+_SIGS = {
+    "fgdp_chain_loop": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P],
+    "fgdp_sw_extend": [_P] * 5 + [_I] * 13 + [_P] * 4 + [_P],
+    "fgdp_chain_loop_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
+}
+
+_libs: dict = {}
+# last build's wall seconds and compiler messages per kernel
+build_log: dict = {}
+# launches per kernel: each wrapper adds one where it launches its
+# kernel, and nowhere else (the smoke run reads these around the main
+# path to show that the path went through the kernels)
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return path
+
+
+def _so(name):
+    return os.path.join(BUILD_DIR, name + ".so")
+
+
+def _stale(so):
+    if not os.path.exists(so):
+        return True
+    srcs = glob.glob(os.path.join(CSRC, "*.cu*")) + \
+        glob.glob(os.path.join(CSRC, "*.cc"))
+    return any(os.path.getmtime(s) > os.path.getmtime(so) for s in srcs)
+
+
+def _start(cmd, so):
+    """Start one compiler into a temporary name next to `so`; a rename
+    publishes it once it succeeds (concurrent builders never see a half
+    written library)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(cmd + ["-o", tmp], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name, proc, tmp, so, t0):
+    out, _ = proc.communicate()
+    build_log[name] = dict(seconds=time.time() - t0, log=out)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"building {name} failed:\n{out}")
+    os.replace(tmp, so)
+
+
+def build(names=KERNELS):
+    """Compile every stale kernel library among `names`, all nvcc
+    processes at once. Returns the wall seconds the build took."""
+    t0 = time.time()
+    jobs = []
+    for name in names:
+        so = _so(name)
+        if _stale(so):
+            cmd = [_nvcc()] + NVCC_FLAGS + [
+                "-I", CSRC, os.path.join(CSRC, name + ".cu")]
+            jobs.append((name, so) + _start(cmd, so))
+    for name, so, proc, tmp in jobs:
+        _finish(name, proc, tmp, so, t0)
+    return time.time() - t0
+
+
+def _bind(path):
+    lib = ctypes.CDLL(path)
+    for fn, args in _SIGS.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def load(name):
+    """The loaded kernel library `name`, building every stale kernel at
+    the first call."""
+    lib = _libs.get(name)
+    if lib is None:
+        build(KERNELS)
+        lib = _libs[name] = _bind(_so(name))
+    return lib
+
+
+def check(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def build_host_twin():
+    """g++ build of csrc/host_twin.cc (test aid); returns the library."""
+    lib = _libs.get("host_twin")
+    if lib is None:
+        so = _so("host_twin")
+        if _stale(so):
+            proc, tmp = _start(["g++", "-O2", "-std=c++17", "-shared",
+                                "-fPIC", "-I", CSRC,
+                                os.path.join(CSRC, "host_twin.cc")], so)
+            _finish("host_twin", proc, tmp, so, time.time())
+        lib = _libs["host_twin"] = _bind(so)
+    return lib

@@ -1,0 +1,525 @@
+"""Single-host alignment pipeline: FASTQ batches -> SAM lines.
+
+The device program runs seeding -> chaining -> batched banded-SW
+extension as torch work on the aligner's device (the CUDA card unless
+the caller asks for the CPU), with the two hand-written kernels on the
+card (ops/sw.py, align/chain.py); the host finishes dedup/patch, primary
+marking, CIGAR and SAM text — mirroring the reference's worker split
+(worker_bwt/worker_aln on compute threads, worker_sam on output,
+src/bwamem.cpp:1800-1850) with the device as the compute side.
+
+Port of the JAX package's pipeline.py for single-end reads. Escalated
+rungs of the overflow ladder run on the same device through the same
+kernels; the JAX package's defences against JAX and relay faults (salt
+re-jit, relay-loss and transient retries, CPU-routed escalation and its
+worker pool) have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .align import chain as chainmod
+from .align import extend as extendmod
+from .align import finalize
+from .align.seeding import collect_seeds, compact_order
+from .config import AlignConfig, BatchShapes
+from .index.fmindex import FMIndex
+from .index.lcptree import LcpTree
+from .index.reference import DeviceReference, PackedReference
+from .ops.fm import DeviceFMIndex
+from .utils import dna
+from .utils.device import resolve_device
+
+_I32 = torch.int32
+STAGES = ("seed", "chain", "extend", "pack")
+
+
+class _StageClock:
+    """Per-stage wall ms into a dict, each stage ended by a device sync
+    (off when the dict is None: the stages then run unsynchronised)."""
+
+    def __init__(self, acc, device):
+        self.acc = acc
+        self.device = device
+        self.t = time.perf_counter()
+
+    def lap(self, name):
+        if self.acc is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.acc[name] = self.acc.get(name, 0.0) + 1e3 * (now - self.t)
+        self.t = now
+
+
+def device_align(dfm: DeviceFMIndex, dref: DeviceReference, codes, lens,
+                 active, opt: AlignConfig, shapes: BatchShapes,
+                 lcp_tree, lcp_isa, stage_ms=None):
+    """codes int[B, L] -> AlnRegBatch (compacted to transfer_regs)."""
+    clock = _StageClock(stage_ms, codes.device)
+    codes = codes.to(_I32)
+    seeds = collect_seeds(dfm, dref, codes, lens, active, opt,
+                          max_seeds=shapes.max_smems, lcp_tree=lcp_tree,
+                          lcp_isa=lcp_isa, prev_cap=20,
+                          scale=shapes.seed_scale,
+                          k1_emit_cap=shapes.k1_emit_cap,
+                          k3_emit_cap=shapes.k3_emit_cap,
+                          k2_scale=shapes.k2_scale)
+    clock.lap("seed")
+    # flat-job pool sizing: the pool is shared first-come-first-served;
+    # primary budget = 32 jobs/read average, escalated programs afford
+    # the per-read worst case
+    B_cur = codes.shape[0]
+    jobs_cap = B_cur * (shapes.jobs_pool_per_read
+                        or (32 if shapes.seed_scale == 1
+                            else shapes.max_seeds))
+    cb = chainmod.chain_seeds(dfm, dref, seeds, lens, opt,
+                              max_seedpos=shapes.max_seeds,
+                              max_chains=shapes.max_chains,
+                              jobs_cap=jobs_cap)
+    clock.lap("chain")
+    regs = extendmod.extend_chains(cb, codes, lens, dref, opt,
+                                   max_regs=shapes.max_regs,
+                                   t_max=shapes.max_ext_ref,
+                                   jobs_per_read=shapes.ext_jobs_per_read
+                                   or 6 * shapes.seed_scale)
+    clock.lap("extend")
+    return compact_regs(regs, shapes.transfer_regs)
+
+
+# reg fields that fit comfortably in int16 (offsets/scores bounded by
+# read_len and a*read_len; rb/re are pac coordinates and stay wide)
+_NARROW_FIELDS = ("qb", "qe", "score", "truesc", "sw_w", "seedcov",
+                  "seedlen0")
+
+
+def compact_regs(regs: "extendmod.AlnRegBatch", k: int):
+    """Order each read's reg slots valid-first (stable) and keep only the
+    first k columns, downcasting bounded fields to int16; a read with
+    more than k valid regs sets its overflow flag and is re-run through
+    the escalation ladder, which widens k alongside every other bound."""
+    B, E = regs.valid.shape
+    if k >= E:
+        return regs
+    counts = regs.valid.sum(dim=1, dtype=_I32)
+    v = regs.valid.to(_I32)
+    rank = torch.where(regs.valid, torch.cumsum(v, 1, dtype=_I32) - 1,
+                       counts[:, None]
+                       + torch.cumsum(1 - v, 1, dtype=_I32) - 1)
+    # rank is a permutation of each row: invert it, keep the first k
+    order = torch.empty_like(rank, dtype=torch.int64).scatter_(
+        1, rank.long(), torch.arange(E, device=rank.device).expand(B, E)
+    )[:, :k]
+    fields = {}
+    for name in regs._fields:
+        a = getattr(regs, name)
+        if a.dim() != 2:
+            continue
+        a = a.gather(1, order)
+        if name in _NARROW_FIELDS:
+            a = a.to(torch.int16)
+        fields[name] = a
+    return regs._replace(overflow=regs.overflow | (counts > k), **fields)
+
+
+# reg-batch wire format: every AlnRegBatch field packed into ONE int32
+# buffer, so the device->host copy is a single transfer
+_PACK_I32 = ("rid", "rb", "re")
+_PACK_I16 = ("qb", "qe", "score", "truesc", "sw_w", "seedcov",
+             "seedlen0")
+
+
+def _wrap32(x):
+    """int64 -> int32 keeping the low 32 bits (two's complement)."""
+    return ((x + 2**31) % 2**32 - 2**31).to(_I32)
+
+
+def pack_regs(regs, cap_per_read: int = 4):
+    """AlnRegBatch -> one flat int32[2 + 2B + 7*CAP] wire buffer.
+
+    Only VALID reg slots ship: slots compact order-preservingly into
+    CAP = cap_per_read * B rows of 7 words (rid, rb, re, qb|qe,
+    score|truesc, sw_w|seedcov, seedlen0). Header: words 0-1 = E, B;
+    per read, one word packing (count | overflow<<16 | ovf_seed<<17)
+    and one frac_rep bitcast. Reads whose slots fall past CAP flag
+    overflow (escalation re-runs them, like every other static cap)."""
+    B, E = regs.valid.shape
+    dev = regs.valid.device
+    CAP = cap_per_read * B
+    l_src, l_on = compact_order(regs.valid.reshape(-1), CAP)
+    src = torch.where(l_on, l_src, 0).long()
+    counts = regs.valid.sum(dim=1, dtype=_I32)
+    csum = torch.cumsum(counts, 0, dtype=_I32)
+    kept = torch.minimum(counts, (CAP - (csum - counts)).clamp(min=0))
+    cap_ovf = kept < counts
+
+    i16 = [getattr(regs, f).to(torch.int64).reshape(-1) for f in _PACK_I16]
+
+    def pair(lo, hi):
+        return _wrap32((lo & 0xffff) | ((hi & 0xffff) << 16))
+
+    cols = [regs.rid.to(_I32).reshape(-1), regs.rb.to(_I32).reshape(-1),
+            regs.re.to(_I32).reshape(-1), pair(i16[0], i16[1]),
+            pair(i16[2], i16[3]), pair(i16[4], i16[5]),
+            (i16[6] & 0xffff).to(_I32)]
+    tbl = torch.stack(cols, dim=1)            # [B*E, 7]
+    payload = torch.where(l_on[:, None], tbl[src], 0)
+    ovf = regs.overflow | cap_ovf
+    hdr = torch.stack(
+        [kept | (ovf.to(_I32) << 16) | (regs.ovf_seed.to(_I32) << 17),
+         regs.frac_rep.to(torch.float32).contiguous().view(_I32)], dim=1)
+    return torch.cat([torch.tensor([E, B], dtype=_I32, device=dev),
+                      hdr.reshape(-1), payload.reshape(-1)])
+
+
+def unpack_regs(buf: np.ndarray) -> dict:
+    """Inverse of pack_regs -> {field: np array} with [B, E] layouts
+    matching AlnRegBatch._asdict() (int16 fields upcast to int32;
+    invalid slots zero)."""
+    buf = np.ascontiguousarray(buf)
+    E, B = int(buf[0]), int(buf[1])
+    hdr = buf[2:2 + 2 * B].reshape(B, 2)
+    payload = buf[2 + 2 * B:].reshape(-1, 7)
+    counts = hdr[:, 0] & 0xffff
+    out = {"overflow": (hdr[:, 0] & (1 << 16)) != 0,
+           "ovf_seed": (hdr[:, 0] & (1 << 17)) != 0,
+           "frac_rep": hdr[:, 1].view(np.float32)}
+    valid = np.arange(E, dtype=np.int32)[None, :] < counts[:, None]
+    out["valid"] = valid
+    offs = np.cumsum(counts) - counts
+    rows = np.flatnonzero(valid.reshape(-1))
+    b_of = rows // E
+    e_of = rows % E
+    src = offs[b_of] + e_of
+    half = payload.astype(np.int32).view(np.int16).reshape(-1, 14)
+    names_i16 = dict(zip(_PACK_I16, (6, 7, 8, 9, 10, 11, 12)))
+    for i, f in enumerate(_PACK_I32):
+        a = np.zeros((B, E), np.int32)
+        a.reshape(-1)[rows] = payload[src, i]
+        out[f] = a
+    for f, col in names_i16.items():
+        a = np.zeros((B, E), np.int32)
+        a.reshape(-1)[rows] = half[src, col].astype(np.int32)
+        out[f] = a
+    return out
+
+
+def device_align_packed(dfm, dref, codes, lens, active, opt, shapes,
+                        lcp_tree, lcp_isa, stage_ms=None):
+    """device_align + single-buffer wire packing (see pack_regs).
+
+    Escalated programs (pack_cap=0) ship at full per-read width."""
+    cap = shapes.pack_cap or shapes.transfer_regs
+    regs = device_align(dfm, dref, codes, lens, active, opt=opt,
+                        shapes=shapes, lcp_tree=lcp_tree, lcp_isa=lcp_isa,
+                        stage_ms=stage_ms)
+    clock = _StageClock(stage_ms, codes.device)
+    buf = pack_regs(regs, cap_per_read=cap)
+    clock.lap("pack")
+    return buf
+
+
+class Aligner:
+    """End-to-end single-end aligner over one reference.
+
+    device=None runs on the CUDA card and raises without one; pass
+    device="cpu" to run on the CPU. `stage_ms` / `esc_stage_ms`, when
+    set to dicts, accumulate per-stage wall ms of the primary and the
+    escalated device runs (each stage then ends with a device sync)."""
+
+    ESCALATE_LEVELS = 2
+
+    def __init__(self, pref: PackedReference, fm: FMIndex,
+                 opt: AlignConfig | None = None,
+                 shapes: BatchShapes | None = None,
+                 lcp: LcpTree | None = None, device=None):
+        self.device = resolve_device(device)
+        self.pref = pref
+        self.opt = opt or AlignConfig()
+        self.shapes = shapes or BatchShapes()
+        self.dref = DeviceReference(pref, self.device)
+        self.dfm = DeviceFMIndex.from_host(fm, self.device)
+        # K1/K2 seeding engine: the LCP-tree machines (lcp=None builds
+        # the tree from the index's SA; pass a loaded LcpTree to skip
+        # the build)
+        if lcp is None:
+            x = np.concatenate([pref.codes,
+                                dna.revcomp(pref.codes)]).astype(np.uint8)
+            lcp = LcpTree.build(x, fm.sa)
+        self.lcp_tree = torch.as_tensor(lcp.tree, device=self.device)
+        self.lcp_isa = torch.as_tensor(lcp.isa, device=self.device)
+        # host-only output options don't shape the device program
+        self._dev_opt = dataclasses.replace(self.opt, output_all=False)
+        self.stage_ms = None
+        self.esc_stage_ms = None
+        self.esc_reads = 0
+        self.esc_calls = 0
+
+    @classmethod
+    def build(cls, pref: PackedReference, **kw) -> "Aligner":
+        return cls(pref, FMIndex.build(pref.codes), **kw)
+
+    def sam_header(self, rg_line=None):
+        lines = ["@HD\tVN:1.6\tSO:unsorted"]
+        for i, (name, ln) in enumerate(zip(self.pref.names,
+                                           self.pref.lens)):
+            ah = "\tAH:*" if bool(self.pref.is_alt[i]) else ""
+            lines.append(f"@SQ\tSN:{name}\tLN:{int(ln)}{ah}")
+        if rg_line:
+            lines.append(rg_line)
+        lines.append("@PG\tID:fgdp-tpu\tPN:fgdp-tpu\tVN:0.1")
+        return lines
+
+    def align_batch(self, names, seq_codes, quals=None, id0: int = 0):
+        """Single-end alignment. names: list[str]; seq_codes: list of int
+        arrays (0..4). Returns SAM lines (one or more per read)."""
+        regs_np = self._device_regs(seq_codes)
+        return self.finalize_batch(names, seq_codes, quals, regs_np, id0)
+
+    def _run(self, shapes, codes, lens, active, stage_ms):
+        """One device program run -> packed reg buffer on the device."""
+        t = lambda a: torch.as_tensor(a, device=self.device)
+        return device_align_packed(
+            self.dfm, self.dref, t(codes), t(lens), t(active),
+            opt=self._dev_opt, shapes=shapes, lcp_tree=self.lcp_tree,
+            lcp_isa=self.lcp_isa, stage_ms=stage_ms)
+
+    def _device_regs_async(self, seq_codes):
+        """Dispatch the primary device program for one batch; returns
+        the packed reg buffer on the device."""
+        from .utils.profiling import PROF
+
+        B = len(seq_codes)
+        L = self.shapes.read_len
+        codes = np.full((B, L), 4, np.int8)
+        lens = np.zeros(B, np.int32)
+        for i, s in enumerate(seq_codes):
+            n = min(len(s), L)
+            codes[i, :n] = np.asarray(s[:n], np.int8)
+            lens[i] = n
+        with PROF.phase("MEM_DEVICE"):
+            return self._run(self.shapes, codes, lens, np.ones(B, bool),
+                             self.stage_ms)
+
+    def _regs_to_np(self, regs, seq_codes=None):
+        out = unpack_regs(regs.cpu().numpy())
+        if seq_codes is not None:
+            out = self._retry_overflow(out, seq_codes)
+        return out
+
+    def _escalated_shapes(self, level: int):
+        """Full escalation (seed-stage overflow): every cap doubles per
+        level, incl. the seeding-internal pools via seed_scale; the
+        chain seed-position table gets an extra 2x."""
+        f = 2 ** level
+        s = self.shapes
+        return dataclasses.replace(
+            s, max_smems=s.max_smems * f, max_seeds=s.max_seeds * 2 * f,
+            max_chains=s.max_chains * f, max_regs=s.max_regs * f,
+            transfer_regs=s.transfer_regs * f, pack_cap=0,
+            seed_scale=s.seed_scale * f)
+
+    def _k2_wide_shapes(self, level: int):
+        """Targeted escalation for seed-stage overflow: K1 reruns at 1x
+        rounds/cost, K2 pools widen, and the chain/extend shapes widen
+        like the chain-wide flavor. The full flavor remains the level-2
+        backstop."""
+        f = 2 ** level
+        s = self.shapes
+        return dataclasses.replace(
+            s, seed_scale=1, k2_scale=2 * f, max_smems=s.max_smems * f,
+            max_seeds=s.max_seeds * 2 * f, max_chains=s.max_chains * f,
+            max_regs=s.max_regs * f, transfer_regs=s.transfer_regs * f,
+            pack_cap=0, jobs_pool_per_read=s.max_seeds * 2 * f,
+            ext_jobs_per_read=6 * f)
+
+    def _chain_wide_shapes(self, level: int):
+        """Targeted escalation for reads whose seeding fit but whose
+        chain/extension/transfer stages overflowed: seeding reruns at 1x
+        cost, only the chain table, job pools, and reg slots widen."""
+        f = 2 ** level
+        s = self.shapes
+        return dataclasses.replace(
+            s, max_seeds=s.max_seeds * 2 * f, max_chains=s.max_chains * f,
+            max_regs=s.max_regs * f, transfer_regs=s.transfer_regs * f,
+            pack_cap=0, jobs_pool_per_read=s.max_seeds * 2 * f,
+            ext_jobs_per_read=6 * f)
+
+    def _esc_exec(self, flavor, level, B_esc, codes, lens, active):
+        """Run one escalated chunk on the aligner's device; returns
+        {field: np.ndarray}."""
+        mk = {"full": self._escalated_shapes,
+              "k2w": self._k2_wide_shapes,
+              "cw": self._chain_wide_shapes}[flavor]
+        esh = dataclasses.replace(mk(level), batch_reads=B_esc)
+        return unpack_regs(self._run(esh, codes, lens, active,
+                                     self.esc_stage_ms).cpu().numpy())
+
+    def _retry_overflow(self, regs_np, seq_codes):
+        """Re-run overflowed reads through progressively wider device
+        buckets (the reference reallocs per-read seed/chain arrays at
+        will; under static shapes a read that exceeds a cap sets its
+        overflow flag and is retried at 2x, 4x, ... shapes)."""
+        ovf = regs_np.get("overflow")
+        if ovf is None or not np.any(ovf):
+            return regs_np
+        from .utils.profiling import PROF
+        with PROF.phase("ESC_RETRY"):
+            return self._retry_overflow_inner(regs_np, seq_codes)
+
+    def _retry_overflow_inner(self, regs_np, seq_codes):
+        regs_np = {k: np.array(v) for k, v in regs_np.items()}
+        ovf = regs_np["overflow"]
+        idx = np.flatnonzero(np.asarray(ovf))
+        # cause routing: seeding-stage overflow needs the wider seeding
+        # machines; chain/extension/transfer overflow re-runs with 1x
+        # seeding and wide chain shapes
+        seed_flag = np.asarray(regs_np.get(
+            "ovf_seed", np.zeros(len(ovf), bool))).copy()
+        self.esc_reads += len(idx)
+        B = len(ovf)
+        L = self.shapes.read_len
+
+        for level in range(1, self.ESCALATE_LEVELS + 1):
+            still = []
+            seed_fl = "k2w" if level == 1 else "full"
+            for flavor in (seed_fl, "cw"):
+                want = seed_flag[idx] if flavor != "cw" \
+                    else ~seed_flag[idx]
+                sub_idx = idx[want]
+                if len(sub_idx) == 0:
+                    continue
+                # power-of-two buckets, as the JAX package sizes them
+                cap_fl = {"k2w": 1024, "cw": 2048, "full": 512}[flavor]
+                B_esc = 128
+                while B_esc < min(len(sub_idx), cap_fl):
+                    B_esc *= 2
+                for c0 in range(0, len(sub_idx), B_esc):
+                    self.esc_calls += 1
+                    chunk = sub_idx[c0:c0 + B_esc]
+                    codes = np.full((B_esc, L), 4, np.int32)
+                    lens = np.zeros(B_esc, np.int32)
+                    active = np.zeros(B_esc, bool)
+                    for j, b in enumerate(chunk):
+                        s = seq_codes[b]
+                        n = min(len(s), L)
+                        codes[j, :n] = np.asarray(s[:n], np.int32)
+                        lens[j] = n
+                        active[j] = True
+                    sub_np = self._esc_exec(flavor, level, B_esc,
+                                            codes, lens, active)
+                    E_new = sub_np["valid"].shape[1]
+                    E_cur = regs_np["valid"].shape[1]
+                    if E_new > E_cur:
+                        for k, v in regs_np.items():
+                            if v.ndim == 2:
+                                pad = np.zeros((B, E_new - E_cur),
+                                               v.dtype)
+                                regs_np[k] = np.concatenate([v, pad],
+                                                            axis=1)
+                    for j, b in enumerate(chunk):
+                        for k, v in regs_np.items():
+                            if v.ndim == 2:
+                                v[b] = sub_np[k][j]
+                        regs_np["overflow"][b] = sub_np["overflow"][j]
+                        # a cw re-run that NOW flags seeding overflow
+                        # promotes to the full flavor next level
+                        seed_flag[b] = bool(
+                            sub_np.get("ovf_seed",
+                                       np.zeros(B_esc, bool))[j])
+                        if sub_np["overflow"][j]:
+                            still.append(b)
+            idx = np.asarray(sorted(still), dtype=np.int64)
+            if len(idx) == 0:
+                break
+        return regs_np
+
+    def _device_regs(self, seq_codes):
+        regs = self._device_regs_async(seq_codes)
+        return self._regs_to_np(regs, seq_codes)
+
+    def finalize_batch(self, names, seq_codes, quals, regs_np, id0):
+        """Host finalize of one batch's device regs -> SAM lines."""
+        from .utils.profiling import PROF, WORKER_SAM
+
+        with PROF.phase(WORKER_SAM):
+            return finalize_se_batch(self.pref, self.opt, self.shapes,
+                                     names, seq_codes, quals, regs_np,
+                                     id0)
+
+
+def finalize_se_batch(pref, opt, shapes, names, seq_codes, quals, regs_np,
+                      id0):
+    """Host finalize for a single-end batch: device regs -> SAM lines.
+    Module-level and numpy-only."""
+    reg_lists = _reg_lists_np(pref, opt, seq_codes, regs_np)
+    # ids feed the hash_64 tie-breaks: each read's global index
+    ids = id0 + np.arange(len(reg_lists))
+    # batch the reg2aln DP (CIGAR/MD) across the whole read batch
+    jobs = []
+    job_of = []
+    for b, rl in enumerate(reg_lists):
+        finalize.mark_primary(opt, rl, int(ids[b]))
+        codes = np.asarray(seq_codes[b], np.int64)
+        for k in finalize.selected_regs(opt, rl):
+            jobs.append((codes, rl[k]))
+            job_of.append((b, k))
+    alns = finalize.reg2aln_batch(pref, opt, jobs) if jobs else []
+    aln_maps = [dict() for _ in reg_lists]
+    for (b, k), a in zip(job_of, alns):
+        aln_maps[b][k] = a
+    out = []
+    for b, rl in enumerate(reg_lists):
+        qual = quals[b] if quals else None
+        out.extend(finalize.reg2sam(
+            pref, opt, names[b], np.asarray(seq_codes[b], np.int64),
+            qual, rl, int(ids[b]), alns_by_k=aln_maps[b]))
+    return out
+
+
+def _reg_lists_np(pref, opt, seq_codes, regs):
+    """Device regs -> per-read dict lists through dedup/patch,
+    sorted by score (mem_sort_dedup_patch output order).
+
+    Arrays convert to nested Python lists ONCE (tolist) — per-element
+    numpy scalar indexing was ~3x slower across the hot loop."""
+    B = len(seq_codes)
+    fields = ("rid", "qb", "qe", "rb", "re", "score", "truesc",
+              "sw_w", "seedcov", "seedlen0")
+    cols = {f: np.asarray(regs[f]).tolist() for f in fields}
+    valid_l = np.asarray(regs["valid"]).tolist()
+    frac_l = np.asarray(regs["frac_rep"]).tolist()
+    is_alt_l = np.asarray(pref.is_alt).tolist()
+    E = len(valid_l[0]) if B else 0
+    out = []
+    for b in range(B):
+        vb = valid_l[b]
+        rl = []
+        for e in range(E):
+            if not vb[e]:
+                continue
+            qb = cols["qb"][b][e]
+            qe = cols["qe"][b][e]
+            if qe <= qb:
+                continue
+            rid = cols["rid"][b][e]
+            rl.append(dict(
+                rid=rid, qb=qb, qe=qe, rb=cols["rb"][b][e],
+                re=cols["re"][b][e], score=cols["score"][b][e],
+                truesc=cols["truesc"][b][e], w=cols["sw_w"][b][e],
+                seedcov=cols["seedcov"][b][e],
+                seedlen0=cols["seedlen0"][b][e],
+                frac_rep=frac_l[b],
+                sub=0, csub=0, sub_n=0,
+                is_alt=is_alt_l[rid] if rid >= 0 else False,
+            ))
+        codes = np.asarray(seq_codes[b], np.int64)
+        rl = finalize.sort_dedup_patch(pref, opt, codes, rl)
+        out.append(rl)
+    return out

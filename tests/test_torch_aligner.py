@@ -1,0 +1,95 @@
+"""The port's `index` + `mem --device cpu` against fgdp_tpu's Aligner.
+
+SAM lines must be identical to fgdp_tpu's on the same batch, and pass
+test_golden's field compare against the reference aligner's output. A
+small-BatchShapes case drives the overflow ladder through all its rungs
+and must match too."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+from fgdp_tpu.config import BatchShapes as JBatchShapes
+from fgdp_tpu.index.reference import PackedReference as JPackedReference
+from fgdp_tpu.pipeline import Aligner as JAligner
+from fgdp_tpu_torch.config import BatchShapes
+from fgdp_tpu_torch.index.reference import PackedReference
+from fgdp_tpu_torch.pipeline import Aligner
+
+from test_golden import CORE, _compare, _load_fastq
+from test_torch_seeding import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
+
+HERE = os.path.join(os.path.dirname(__file__), "golden")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BATCH = 128
+
+FIXTURES = {
+    "se": ("ref.fa", "se.fq", "se.oracle.sam", 150, 150),
+    "rep": ("rep_ref.fa", "rep.fq", "rep.oracle.sam", 80, 79),
+    "alt": ("alt_ref.fa", "alt.fq", "alt.oracle.sam", 48, 48),
+}
+
+
+def _records(lines):
+    return [ln for ln in lines if ln and not ln.startswith("@")]
+
+
+def _run_cli(*args, cwd):
+    env = dict(os.environ, PYTHONPATH=ROOT, **ONE_THREAD_ENV)
+    return subprocess.run([sys.executable, "-m", "fgdp_tpu_torch", *args],
+                          cwd=cwd, env=env, check=True,
+                          capture_output=True, text=True, timeout=600)
+
+
+@pytest.mark.parametrize("fx", sorted(FIXTURES))
+def test_cli_mem_matches_jax(fx, tmp_path):
+    ref, fq, oracle, min_core, min_full = FIXTURES[fx]
+    prefix = str(tmp_path / "idx")
+    _run_cli("index", os.path.join(HERE, ref), prefix, cwd=tmp_path)
+    out = tmp_path / "out.sam"
+    _run_cli("mem", prefix, os.path.join(HERE, fq), "-o", str(out),
+             "-b", str(BATCH), "--device", "cpu", cwd=tmp_path)
+    ours = out.read_text().splitlines()
+
+    names, seqs, quals = _load_fastq(os.path.join(HERE, fq))
+    jal = JAligner.build(JPackedReference.from_fasta(os.path.join(HERE,
+                                                                  ref)),
+                         shapes=JBatchShapes(batch_reads=BATCH))
+    want = jal.sam_header() + jal.align_batch(names, seqs, quals)
+    assert ours == want
+    with open(os.path.join(HERE, oracle)) as f:
+        _compare(f.read().splitlines(), ours, CORE, min_core, min_full,
+                 len(names))
+
+
+# tight caps: most reads overflow some stage, so the ladder's rungs
+# (k2w and cw at level 1, full and cw at level 2) all run
+LADDER = dict(read_len=100, batch_reads=64, max_smems=1, max_seeds=8,
+              max_chains=2, max_regs=3, transfer_regs=2, pack_cap=1,
+              max_ext_ref=304)
+
+
+def test_overflow_ladder_matches_jax(monkeypatch):
+    names, seqs, quals = _load_fastq(os.path.join(HERE, "rep.fq"))
+    names, seqs, quals = names[:64], seqs[:64], quals[:64]
+    al = Aligner.build(PackedReference.from_fasta(
+        os.path.join(HERE, "rep_ref.fa")), shapes=BatchShapes(**LADDER),
+        device="cpu")
+    rungs = []
+    esc = al._esc_exec
+
+    def spy(flavor, level, *a):
+        rungs.append((flavor, level))
+        return esc(flavor, level, *a)
+
+    monkeypatch.setattr(al, "_esc_exec", spy)
+    ours = al.align_batch(names, seqs, quals)
+    assert {("k2w", 1), ("cw", 1), ("full", 2), ("cw", 2)} <= set(rungs), \
+        rungs
+    jal = JAligner.build(JPackedReference.from_fasta(
+        os.path.join(HERE, "rep_ref.fa")), shapes=JBatchShapes(**LADDER))
+    want = jal.align_batch(names, seqs, quals)
+    assert ours == want
+    assert al.esc_reads == jal.esc_reads

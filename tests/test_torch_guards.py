@@ -1,0 +1,156 @@
+"""Guards of the port: it imports neither jax nor fgdp_tpu, its entry
+points never fall back to the CPU silently, and CUDA tensors never reach
+a plain PyTorch version through the kernel wrappers."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from fgdp_tpu_torch.align import chain
+from fgdp_tpu_torch.ops import sw
+from fgdp_tpu_torch.utils import device as devmod
+
+from test_torch_seeding import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "fgdp_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "fgdp_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_no_forbidden_import_in_source():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _forbidden(node.module or ""):
+                    bad.append((path, node.module))
+    assert not bad, bad
+
+
+def test_port_runs_with_jax_and_fgdp_tpu_blocked(tmp_path):
+    """Every port module imports, and a small CPU `mem` runs, while a
+    meta-path finder refuses jax and fgdp_tpu (a subprocess: the test
+    session itself has jax loaded)."""
+    script = textwrap.dedent(f"""
+        import importlib, importlib.abc, os, pkgutil, sys
+        BLOCK = {FORBIDDEN!r}
+
+        class Blocker(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCK:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Blocker())
+        sys.path.insert(0, {ROOT!r})
+        import fgdp_tpu_torch
+        for m in pkgutil.walk_packages(fgdp_tpu_torch.__path__,
+                                       "fgdp_tpu_torch."):
+            if m.name != "fgdp_tpu_torch.__main__":
+                importlib.import_module(m.name)
+        import chip_smoke
+        from fgdp_tpu_torch import cli
+        golden = os.path.join({ROOT!r}, "tests", "golden")
+        prefix = os.path.join({str(tmp_path)!r}, "idx")
+        cli.main(["index", os.path.join(golden, "ref.fa"), prefix])
+        out = os.path.join({str(tmp_path)!r}, "out.sam")
+        cli.main(["mem", prefix, os.path.join(golden, "se.fq"), "-o", out,
+                  "--device", "cpu", "-b", "64"])
+        n = sum(1 for ln in open(out) if not ln.startswith("@"))
+        assert n >= 150, n
+        loaded = [m for m in sys.modules if m.split(".")[0] in BLOCK]
+        assert not loaded, loaded
+        print("OK", n)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(ONE_THREAD_ENV)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=tmp_path)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().startswith("OK")
+
+
+def test_no_device_without_cuda_raises(monkeypatch):
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.index.reference import DeviceReference, PackedReference
+    from fgdp_tpu_torch.ops.fm import DeviceFMIndex
+    from fgdp_tpu_torch.pipeline import Aligner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    pref = PackedReference.from_contigs(["c"], [rng.integers(0, 4, 500)])
+    fm = FMIndex.build(pref.codes)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Aligner(pref, fm)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Aligner(pref, fm, device="cuda")
+    # the device objects default to the card too
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceReference(pref)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceFMIndex.from_host(fm)
+    assert devmod.resolve_device("cpu").type == "cpu"
+    assert DeviceReference(pref, device="cpu").codes.device.type == "cpu"
+    assert DeviceFMIndex.from_host(fm, device="cpu").sa.device.type == "cpu"
+
+
+class _CudaStub:
+    """Stands in for a CUDA tensor at the wrappers' dispatch point."""
+
+    is_cuda = True
+    shape = (4, 8)
+
+
+def test_cuda_tensors_never_reach_plain_versions(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    calls = []
+
+    def fail_plain(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    monkeypatch.setattr(sw, "sw_extend_plain", fail_plain)
+    monkeypatch.setattr(chain, "chain_loop_plain", fail_plain)
+    monkeypatch.setattr(sw, "sw_extend_kernel",
+                        lambda *a, **k: calls.append("sw"))
+    monkeypatch.setattr(chain, "chain_loop_kernel",
+                        lambda *a, **k: calls.append("chain"))
+    p = sw.SWParams(6, 1, 6, 1, 100, 5, 1)
+    stub = _CudaStub()
+    sw.sw_extend(stub, stub, stub, stub, stub, 100, p)
+    chain.chain_loop(stub, stub, stub, stub, stub, stub, 10, 4, 100, 1000)
+    assert calls == ["sw", "chain"]
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch on CUDA tensors or raise: CPU tensors
+    are refused before any build or launch."""
+    z = torch.zeros((4, 8), dtype=torch.int32)
+    z1 = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        sw.sw_extend_kernel(z, z1, z, z1, z1, 100,
+                            sw.SWParams(6, 1, 6, 1, 100, 5, 1))
+    with pytest.raises(ValueError):
+        chain.chain_loop_kernel(z, z, z, z, z.bool(), z1.bool(), 10, 4,
+                                100, 1000)
