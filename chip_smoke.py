@@ -32,6 +32,23 @@ fails loudly:
               PairHMM launches, pairs, cells and kernel ms, the share of
               planted sites called, and the first 20 sites' calls equal
               to the port's CPU run
+  9. probes   the S1 issue-rate probe (FP32 FMA chains and their INT32
+              twin) and the S2 row-gather probe: each kernel against its
+              plain version (FP32 within rtol 1e-5, INT32 and the gather
+              exactly), then the probes' sweeps; their measured rates
+              replace the lane counts in the bounds where they are higher
+              (runs first, before the kernels phase)
+ 10. sormadup_scale BASELINE config 3's class: a coordinate-shuffled SAM
+              of 1,000,000 records (151 bp pairs with 10% planted
+              duplicate pairs, singles, unmapped) on a chr20-length
+              contig, through `sormadup` on the card and on the CPU: BAM
+              and BAI byte-equal; records/s and the SD_* phase times
+ 11. pipeline_scale FASTQ -> sorted, duplicate-marked BAM through
+              `pipeline -t min(cpu-1, 8)` on the card, on the scale
+              phase's index and reads plus 1,638 planted duplicates:
+              record count, coordinate order, the planted duplicates
+              found, and the records equal to the `mem` SAM of the same
+              reads, flags aside; reads/s end to end
 Then one JSON line of the kernels, the card line, and the result line.
 """
 
@@ -39,7 +56,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -49,18 +65,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 # the card's published HBM rate (NVIDIA H100 SXM data sheet); the
-# operation rates are counted per SM and clock (Hopper: 128 FP32 lanes,
-# 64 INT32 lanes per SM, one operation per lane and clock without FMA),
-# times this card's SM count and maximum SM clock (see card_rates)
+# operation rates are lanes x SMs x the maximum SM clock
+# (fgdp_tpu_torch.probes.card), or the probes' measured rates where higher
 PEAK_BYTES = 3.35e12
-FP32_LANES = 128
-INT32_LANES = 64
-SW_OPS_PER_CELL = 20      # int32 operations per DP cell (sw_extend.cuh)
-CHAIN_OPS_PER_SLOT = 6    # per seed step and chain slot (chain_loop.cuh)
-# float32 operations per PairHMM cell (pairhmm.cuh): 5 for M, 3 for X,
-# 1 for u, 6 compares and selects of the match prior, 2 per doubling
-HMM_OPS_PER_CELL = 15
-HMM_OPS_PER_DOUBLING = 2
 MUTECT_SITES = 300
 MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
 
@@ -230,31 +237,6 @@ def hmm_inputs(seed, NP, R, H, cq, full=False, hopeless=0.0):
 
 # ------------------------------------------------------------ measuring
 
-def cuda_ms(fn, reps=5):
-    """Mean ms per call over `reps` launches after a warm-up, by CUDA
-    events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        fn()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / reps
-
-
-def wall_ms(fn):
-    import torch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return 1e3 * (time.perf_counter() - t0), out
-
-
 def max_abs_err(a, b):
     import torch
     err = 0
@@ -272,24 +254,14 @@ def phase_card():
     """The card line and the operation rates the bounds are counted
     against: SMs x lanes x the maximum SM clock."""
     import torch
-    q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    card = q.stdout.strip().splitlines()[0] if q.returncode == 0 \
-        and q.stdout.strip() else f"nvidia-smi failed: {q.stderr.strip()}"
-    c = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                        "--format=csv,noheader,nounits"],
-                       capture_output=True, text=True, timeout=60)
-    mhz = float(c.stdout.split()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rates = dict(fp32=sms * FP32_LANES * mhz * 1e6,
-                 int32=sms * INT32_LANES * mhz * 1e6)
+    from fgdp_tpu_torch.probes import card
+    name, lanes = card()
     log(f"[card] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
-        f" x{torch.cuda.device_count()}; {sms} SMs, max SM clock {mhz} MHz:"
-        f" FP32 {rates['fp32'] / 1e12:.2f} T/s, INT32 "
-        f"{rates['int32'] / 1e12:.2f} T/s (no FMA)")
-    return card, rates
+        f" x{torch.cuda.device_count()}; {lanes['sms']} SMs, max SM clock "
+        f"{lanes['mhz']} MHz: FP32 {lanes['fp32'] / 1e12:.2f} T/s, INT32 "
+        f"{lanes['int32'] / 1e12:.2f} T/s (an FMA counted once)")
+    return name, dict(fp32=lanes["fp32"], int32=lanes["int32"])
 
 
 def phase_build():
@@ -317,6 +289,8 @@ def phase_kernels(dev, rates):
     from fgdp_tpu_torch.align import chain
     from fgdp_tpu_torch.config import AlignConfig, BatchShapes
     from fgdp_tpu_torch.ops import sw
+    from fgdp_tpu_torch.probes import (CHAIN_OPS_PER_SLOT, SW_OPS_PER_CELL,
+                                       cuda_ms, wall_ms)
 
     opt = AlignConfig()
     shp = BatchShapes(batch_reads=4096)
@@ -394,6 +368,8 @@ def kernels_pairhmm(dev, rates):
     re-run included, must equal the port's CPU run."""
     import torch
     from fgdp_tpu_torch.ops import pairhmm
+    from fgdp_tpu_torch.probes import (HMM_OPS_PER_CELL, HMM_OPS_PER_DOUBLING,
+                                       cuda_ms, wall_ms)
     from fgdp_tpu_torch.utils.profiling import HMM_F64, PROF
 
     row = None
@@ -539,6 +515,34 @@ class EscCounter:
         aligner._esc_exec = spy
 
 
+class Unresolved:
+    """Reads whose overflow flag is still set after the escalation ladder
+    (their alignments are those of the widest caps, cut short), by
+    sequence: recorded around every Aligner's ladder once installed."""
+
+    seqs = set()
+
+    @classmethod
+    def install(cls):
+        from fgdp_tpu_torch.pipeline import Aligner
+        inner = Aligner._retry_overflow_inner
+        if getattr(inner, "unresolved_spy", False):
+            return
+
+        def spy(self, regs_np, seq_codes):
+            out = inner(self, regs_np, seq_codes)
+            for b in np.flatnonzero(out["overflow"]):
+                cls.seqs.add(np.asarray(seq_codes[b], np.int8).tobytes())
+            return out
+
+        spy.unresolved_spy = True
+        Aligner._retry_overflow_inner = spy
+
+    @classmethod
+    def has(cls, seq):
+        return np.asarray(seq, np.int8).tobytes() in cls.seqs
+
+
 def phase_ladder(dev):
     """Tight caps push most reads through every rung of the overflow
     ladder; the card's SAM must equal the port's CPU SAM."""
@@ -594,6 +598,7 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     cli.main(["index", fa, prefix])
     t_index = time.time() - t0
 
+    Unresolved.install()
     aligner = cli.load_aligner(prefix, batch, opt=None, device=dev)
     aligner.stage_ms = {}
     aligner.esc_stage_ms = {}
@@ -620,8 +625,10 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
         f"{fin_ms:.1f}; escalated stage ms total "
         f"{json.dumps({k: round(v, 1) for k, v in aligner.esc_stage_ms.items()})}")
     log(f"[scale] escalated reads {aligner.esc_reads} in "
-        f"{aligner.esc_calls} rung calls {sorted(set(esc.rungs))}; "
-        f"launches {launches}, of which in rungs {esc.launches}")
+        f"{aligner.esc_calls} rung calls {sorted(set(esc.rungs))}, "
+        f"{sum(Unresolved.has(s) for _, s in reads)} still overflowed after "
+        f"the last rung; launches {launches}, of which in rungs "
+        f"{esc.launches}")
     log(f"[scale] peak device memory {peak / 2**30:.2f} GiB")
 
     # placement accuracy against the simulated truth
@@ -648,7 +655,8 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     if aligner.esc_reads and min(esc.launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched in the escalated "
                              f"rungs: {esc.launches}")
-    return launches
+    return launches, dict(prefix=prefix, fq=fq, reads=reads, lines=lines,
+                          aligner=aligner)
 
 
 def phase_mutect_golden(tmp):
@@ -799,8 +807,302 @@ def phase_mutect_scale(dev, genome_bp):
     return launches
 
 
-PHASES = ("kernels", "golden", "ladder", "scale", "mutect_golden",
-          "mutect_scale")
+def phase_probes(dev, lanes):
+    """S1 and S2: each kernel against its plain version, then the
+    probes' own sweeps with the launch counts set to 0 just before them.
+    Returns the kernel rows and the rates the bounds divide by."""
+    from fgdp_tpu_torch.ops import kernels
+    from fgdp_tpu_torch.probes import cuda_ms, gather, wall_ms
+    from fgdp_tpu_torch.probes import vpu_ceiling as vc
+
+    err = vc.check(dev)
+    log(f"[probes] vpu_ceiling kernel vs plain at {vc.ROWS}x{vc.LANES * vc.G}"
+        f" over {vc.CHECK_STEPS} steps, chains {vc.CHAINS}: int32 exact, "
+        f"fp32 max relative error {err:.3g} (tolerance {vc.FP32_RTOL})")
+    tbl = gather.table(dev)
+    gather.check(tbl)
+    log(f"[probes] gather_rows kernel equals tbl[idx] on the "
+        f"{gather.NBLOCKS}x{gather.W} int32 table at N {gather.NS} and D "
+        f"{gather.KERNEL_DEPTHS}, and over a whole chain")
+
+    kernels.reset_launches()
+    vrows, best = vc.measure(dev, log=log)
+    grows = gather.measure(tbl, log=log)
+    launches = {k: kernels.LAUNCHES[k] for k in ("vpu_ceiling",
+                                                 "gather_rows")}
+    rates = {}
+    for kind in ("fp32", "int32"):
+        rates[kind] = max(lanes[kind], best[kind])
+        log(f"[probes] best {kind} issue rate {best[kind] / 1e12:.3f} T/s ="
+            f" {100 * best[kind] / lanes[kind]:.1f}% of lanes x SMs x max "
+            f"clock ({lanes[kind] / 1e12:.3f} T/s); bounds divide by "
+            f"{rates[kind] / 1e12:.3f} T/s")
+
+    # S1's row: the fastest FP32 chain count, bound by its FLOPs (an FMA
+    # is two) over twice the FMA issue rate
+    top = max((r for r in vrows if r["kind"] == "fp32"),
+              key=lambda r: r["rate"])
+    xf = vc.inputs(dev)[0]
+    plain_ms, _ = wall_ms(lambda: vc.vpu_ceiling_plain(
+        xf, vc.STEPS, top["n_chains"]))
+    b_ms, b_by = bound(2 * xf.numel() * 4, top["work"] / 2, rates["fp32"])
+    log(f"[probes] vpu_ceiling row: fp32 chains={top['n_chains']}, kernel "
+        f"{top['ms']:.4f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}); launches in the sweeps {launches}")
+    rows = dict(vpu_ceiling=dict(max_abs_err=err, ms=top["ms"],
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None))
+
+    # S2's row: one launch that fills the card, N = 262,144 at D = 16
+    n, d = gather.NS[-1], 16
+    idx = gather.indices(dev, n, seed=9)
+    ms = cuda_ms(lambda: gather.gather_rows_kernel(tbl, idx, d, False))
+    plain = cuda_ms(lambda: gather.gather_rows_plain(tbl, idx))
+    lib = cuda_ms(lambda: torch_index_select(tbl, idx))
+    b_ms, b_by = bound(gather.row_bytes(n), 0, rates["int32"])
+    log(f"[probes] gather_rows row: N={n} D={d}: kernel {ms:.4f} ms "
+        f"({gather.row_bytes(n) / ms / 1e6:.1f} GB/s), plain tbl[idx] "
+        f"{plain:.4f} ms, torch.index_select {lib:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    rows["gather_rows"] = dict(max_abs_err=0, ms=ms, plain_ms=plain,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"probe kernel {k} never launched")
+    return rows, launches, rates
+
+
+def torch_index_select(tbl, idx):
+    """The library yardstick of S2 (the port never calls it)."""
+    import torch
+    return torch.index_select(tbl, 0, idx)
+
+
+CHR20_LEN = 64_444_167
+SD_PHASES = ("SD_DUPSCAN", "SD_SORT", "SD_ENCODE", "SD_BGZF", "SD_BAI")
+
+
+def make_sormadup_sam(path, n_records, seed=3):
+    """A SAM out of coordinate order (record groups shuffled, mates
+    adjacent as an aligner writes them) in BASELINE config 3's class on
+    one chr20-length contig: 151 bp FR pairs (0x63/0x93, a tenth of the
+    first mates soft-clipped by 5, some at the contig's start: negative
+    5' positions), 10% of the pairs planted duplicates of another pair's
+    positions with new names and qualities, 8% unpaired singles, 2%
+    unmapped. A third of the names carry no tile:x:y. Returns the counts."""
+    rng = np.random.default_rng(seed)
+    L = 151
+    n_unmapped = n_records // 50
+    n_singles = 2 * n_records // 25
+    n_pairs = (n_records - n_unmapped - n_singles) // 2
+    n_records = 2 * n_pairs + n_singles + n_unmapped
+    n_dup = n_pairs // 10
+    n_orig = n_pairs - n_dup
+    pos1 = rng.integers(1, CHR20_LEN - 1000, n_orig)
+    pos1[:50] = rng.integers(1, 4, 50)
+    ins = rng.integers(200, 600, n_orig)
+    clip = rng.random(n_orig) < 0.1
+    src = rng.integers(0, n_orig, n_dup)
+    pos1 = np.concatenate([pos1, pos1[src]])
+    ins = np.concatenate([ins, ins[src]])
+    clip = np.concatenate([clip, clip[src]])
+    pos2 = pos1 + ins - L
+    seqs = ["".join(rng.choice(list("ACGT"), L)) for _ in range(64)]
+    quals = ["".join(chr(33 + q) for q in rng.integers(2, 41, L))
+             for _ in range(512)]
+    tiles = rng.integers(1, 2000, n_records)
+    xy = rng.integers(1, 30000, (n_records, 2))
+    plain_name = rng.random(n_records) < 1 / 3
+    sq = rng.integers(0, 64, n_records)
+    ql = rng.integers(0, 512, n_records)
+
+    def name(i):
+        if plain_name[i]:
+            return f"r{i}"
+        return f"A00:1:FC:1:{tiles[i]}:{xy[i, 0]}:{xy[i, 1]}"
+
+    lines = []
+    for p in range(n_pairs):
+        nm, a, b = name(p), int(pos1[p]), int(pos2[p])
+        tlen = b + L - a
+        cig = "5S146M" if clip[p] else "151M"
+        lines.append(f"{nm}\t99\tchr20\t{a}\t60\t{cig}\t=\t{b}\t{tlen}\t"
+                     f"{seqs[sq[p]]}\t{quals[ql[p]]}\n"
+                     f"{nm}\t147\tchr20\t{b}\t60\t151M\t=\t{a}\t{-tlen}\t"
+                     f"{seqs[sq[p] - 1]}\t{quals[ql[p] - 1]}\n")
+    spos = rng.integers(1, CHR20_LEN - L, n_singles)
+    for i in range(n_singles):
+        k = n_pairs + i
+        lines.append(f"{name(k)}\t{16 if k % 2 else 0}\tchr20\t{spos[i]}\t60"
+                     f"\t151M\t*\t0\t0\t{seqs[sq[k]]}\t{quals[ql[k]]}\n")
+    for i in range(n_unmapped):
+        k = n_pairs + n_singles + i
+        lines.append(f"{name(k)}\t4\t*\t0\t0\t*\t*\t0\t0\t{seqs[sq[k]]}\t"
+                     f"{quals[ql[k]]}\n")
+    order = rng.permutation(len(lines))
+    with open(path, "w") as f:
+        f.write(f"@HD\tVN:1.6\tSO:unsorted\n@SQ\tSN:chr20\tLN:{CHR20_LEN}\n"
+                "@PG\tID:chip_smoke\tPN:chip_smoke\n")
+        for c in range(0, len(order), 100_000):
+            f.writelines(lines[i] for i in order[c:c + 100_000])
+    return dict(records=n_records, pairs=n_pairs, planted=n_dup,
+                singles=n_singles, unmapped=n_unmapped)
+
+
+def phase_sormadup_scale(tmp, n_records):
+    """`sormadup` of config 3's class on the card, then on the CPU: the
+    same BAM and BAI bytes; records/s and the SD_* phase times."""
+    import torch
+    from fgdp_tpu_torch import cli
+    from fgdp_tpu_torch.utils.profiling import PROF
+
+    sam = os.path.join(tmp, "sd.sam")
+    t0 = time.time()
+    counts = make_sormadup_sam(sam, n_records)
+    log(f"[sormadup_scale] data: {json.dumps(counts)} on a {CHR20_LEN} bp "
+        f"contig, {os.path.getsize(sam) / 2**20:.0f} MiB of SAM, made in "
+        f"{time.time() - t0:.1f} s")
+    out = {}
+    for d in ("cuda", "cpu"):
+        bam = os.path.join(tmp, f"sd_{d}.bam")
+        p0 = {k: PROF.acc.get(k, 0.0) for k in SD_PHASES}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        n, ndup = cli.main(["sormadup", sam, bam, "--device", d])
+        wall = time.time() - t0
+        sd = {k: round(PROF.acc.get(k, 0.0) - p0[k], 3) for k in SD_PHASES}
+        log(f"[sormadup_scale] {d}: {n} records, {ndup} duplicate pairs in "
+            f"{wall:.2f} s = {n / wall:.0f} records/s end to end; phase s "
+            f"{json.dumps(sd)}")
+        with open(bam, "rb") as f, open(bam + ".bai", "rb") as g:
+            out[d] = (f.read(), g.read(), n, ndup)
+    same = out["cuda"] == out["cpu"]
+    log(f"[sormadup_scale] card BAM and BAI equal to the CPU run's: {same} "
+        f"({len(out['cuda'][0])} + {len(out['cuda'][1])} bytes)")
+    if not same:
+        raise AssertionError("sormadup on the card differs from the CPU")
+    n, ndup = out["cuda"][2:]
+    if n != counts["records"] or not counts["planted"] <= ndup \
+            <= 1.1 * counts["planted"]:
+        raise AssertionError(f"{n} records, {ndup} duplicate pairs for "
+                             f"{counts}")
+
+
+def phase_pipeline_scale(dev, tmp, ctx, batch, n_dups):
+    """FASTQ -> sorted, duplicate-marked BAM on the card through
+    `pipeline -t min(cpu-1, 8)`: the scale phase's reads plus `n_dups`
+    planted duplicates (renamed copies of reads, new qualities) appended
+    at the end, so every read keeps the id it had in the scale phase's
+    `mem` run."""
+    from fgdp_tpu_torch import cli
+    from fgdp_tpu_torch.io import bam as bamio
+    from fgdp_tpu_torch.ops import kernels
+    from fgdp_tpu_torch.sortdup import driver
+    from fgdp_tpu_torch.utils.profiling import PROF
+
+    rng = np.random.default_rng(23)
+    reads = ctx["reads"]
+    src = np.sort(rng.choice(len(reads), n_dups, replace=False))
+    dups = [(f"d{k}_" + reads[i][0].split("_", 1)[1], reads[i][1])
+            for k, i in enumerate(src)]
+    fq = os.path.join(tmp, "reads_dups.fq")
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    with open(fq, "w") as f:
+        for name, s in reads:
+            f.write(f"@{name}\n{lut[s].tobytes().decode()}\n+\n"
+                    f"{'I' * len(s)}\n")
+        for name, s in dups:
+            q = "".join(chr(33 + v) for v in rng.integers(20, 41, len(s)))
+            f.write(f"@{name}\n{lut[s].tobytes().decode()}\n+\n{q}\n")
+    workers = min((os.cpu_count() or 2) - 1, 8)
+    out = os.path.join(tmp, "pipeline.bam")
+    kernels.reset_launches()
+    p0 = {k: PROF.acc.get(k, 0.0) for k in ("POOL_WAIT", "SORT_FINISH")}
+    t0 = time.time()
+    n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], fq, "-O", out,
+                              "-t", str(workers), "-b", str(batch)])
+    wall = time.time() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in MEM_KERNELS}
+    waits = {k: round(PROF.acc.get(k, 0.0) - p0[k], 2) for k in p0}
+    log(f"[pipeline_scale] {n} reads -> {nrec} records, {ndup} duplicates "
+        f"in {wall:.2f} s = {n / wall:.1f} reads/s end to end ({workers} "
+        f"finalize workers, batch {batch}); launches {launches}; s "
+        f"{json.dumps(waits)}")
+
+    # the mem SAM of the same reads: the scale phase's lines, and the
+    # planted copies aligned with the ids they have in the stream
+    names = [d[0] for d in dups]
+    seqs = [d[1].astype(np.int64) for d in dups]
+    with open(fq) as f:
+        quals = f.read().splitlines()[4 * len(reads) + 3::4]
+    mem = ctx["lines"] + ctx["aligner"].align_batch(names, seqs, quals,
+                                                    id0=len(reads))
+    ref_bam = os.path.join(tmp, "mem_sorted.bam")
+    driver.sort_markdup(ctx["aligner"].sam_header() + mem, ref_bam,
+                        device=dev)
+    _, _, _, got = bamio.read_bam(out)
+    _, _, _, want = bamio.read_bam(ref_bam)
+    keys = [(r["rid"] if r["rid"] >= 0 else 1 << 30, r["pos"]) for r in got]
+
+    def by_name(recs):
+        out = {}
+        for r in recs:
+            out.setdefault(r["qname"], []).append(
+                tuple(sorted({**r, "flag": r["flag"] & ~0x400}.items())))
+        return {q: sorted(v) for q, v in out.items()}
+
+    g, w = by_name(got), by_name(want)
+    diff = sorted(q for q in set(g) | set(w) if g.get(q) != w.get(q))
+    # a read still overflowed after the last rung keeps the widest caps'
+    # cut-short alignment, which depends on the reads it shared that
+    # rung's batch with: the stream defers escalated reads into other
+    # batches than `mem` runs them in (the JAX package's design)
+    cut = {q for q, s in reads + dups if Unresolved.has(s)}
+    other = [q for q in diff if q not in cut]
+    for q in (other or diff)[:3]:
+        a, b = (dict(x[0]) if x else {} for x in (g.get(q), w.get(q)))
+        log(f"[pipeline_scale] differs: {q}: " + "; ".join(
+            f"{k} {a.get(k)!r} vs {b.get(k)!r}" for k in sorted(set(a) |
+                                                              set(b))
+            if a.get(k) != b.get(k)))
+    # planted pairs whose two reads the mem SAM places alike (same
+    # contig, position, strand and CIGAR): exactly one of them is marked
+    prim = {r["qname"]: r for r in got if not r["flag"] & 0x904}
+    pairs = [(reads[i][0], names[k]) for k, i in enumerate(src)]
+    alike = [(a, b) for a, b in pairs if a in prim and b in prim and all(
+        prim[a][k] == prim[b][k] for k in ("rid", "pos", "cigar")) and
+        (prim[a]["flag"] ^ prim[b]["flag"]) & 0x10 == 0]
+    dup = {q: bool(r["flag"] & 0x400) for q, r in prim.items()}
+    one = sum(dup[a] != dup[b] for a, b in alike)
+    planted = set(sum(map(list, pairs), []))
+    natural = sum(v for q, v in dup.items() if q not in planted)
+    log(f"[pipeline_scale] {len(got)} records in coordinate order: "
+        f"{keys == sorted(keys)}; reads whose records differ from the mem "
+        f"SAM of the same reads (flags aside): {len(diff)}, all but "
+        f"{len(other)} among the {len(cut)} reads still overflowed after "
+        f"the last rung; planted pairs "
+        f"placed alike {len(alike)}/{n_dups}, with exactly one of the two "
+        f"marked {one}; duplicates outside the planted pairs {natural}")
+    if len(got) != nrec or nrec != len(mem) or n != len(reads) + n_dups:
+        raise AssertionError(f"{len(got)} records in the BAM, {nrec} "
+                             f"written, {len(mem)} in the mem SAM")
+    if keys != sorted(keys) or other:
+        raise AssertionError("pipeline BAM out of order or unlike mem")
+    if one < 0.98 * len(alike) or len(alike) < 0.8 * n_dups or \
+            natural > 0.01 * len(reads):
+        raise AssertionError(f"duplicates: {one} of {len(alike)} planted "
+                             f"pairs marked, {natural} others")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched in pipeline")
+
+
+PHASES = ("probes", "kernels", "golden", "ladder", "scale",
+          "mutect_golden", "mutect_scale", "sormadup_scale",
+          "pipeline_scale")
+SCALE_READS = 16_384
+PIPELINE_DUPS = 1_638
+SORMADUP_RECORDS = 1_000_000
 
 
 def main(argv=None):
@@ -831,21 +1133,30 @@ def main(argv=None):
     t_start = time.time()
     card, rates = phase_card()
     phase_build()
+    rows, launches = {}, {}
+    if "probes" in phases:
+        prows, plaunch, rates = phase_probes(dev, rates)
+        rows.update(prows)
+        launches.update(plaunch)
     if "kernels" in phases:
-        rows = phase_kernels(dev, rates)
-    launches = {}
+        rows.update(phase_kernels(dev, rates))
     with tempfile.TemporaryDirectory(prefix="fgdp_smoke_") as tmp:
         if "golden" in phases:
             phase_golden(tmp)
         if "ladder" in phases:
             phase_ladder(dev)
-        if "scale" in phases:
-            launches.update(phase_scale(dev, tmp, genome_bp=4_600_000,
-                                        n_reads=16_384, batch=4096))
+        if "scale" in phases or "pipeline_scale" in phases:
+            mem_launches, ctx = phase_scale(dev, tmp, genome_bp=4_600_000,
+                                            n_reads=SCALE_READS, batch=4096)
+            launches.update(mem_launches)
         if "mutect_golden" in phases:
             phase_mutect_golden(tmp)
         if "mutect_scale" in phases:
             launches["pairhmm"] = phase_mutect_scale(dev, 4_600_000)
+        if "sormadup_scale" in phases:
+            phase_sormadup_scale(tmp, SORMADUP_RECORDS)
+        if "pipeline_scale" in phases:
+            phase_pipeline_scale(dev, tmp, ctx, 4096, PIPELINE_DUPS)
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed in "
             f"{time.time() - t_start:.1f} s (partial run: no result)")
@@ -858,6 +1169,10 @@ def main(argv=None):
                        "fgdp_tpu/ops/chain_pallas.py:40"),
         "pairhmm": ("cuda", "fgdp_tpu_torch/csrc/pairhmm.cu",
                     "fgdp_tpu/ops/pairhmm_pallas.py:34"),
+        "vpu_ceiling": ("cuda", "fgdp_tpu_torch/csrc/vpu_ceiling.cu",
+                        "scripts/bench_vpu_ceiling.py:44"),
+        "gather_rows": ("cuda", "fgdp_tpu_torch/csrc/gather_rows.cu",
+                        "scripts/bench_gather_pallas.py:26"),
     }
     out = []
     for name, (route, src, repl) in meta.items():
@@ -866,7 +1181,8 @@ def main(argv=None):
                         launches=launches[name],
                         max_abs_err=r["max_abs_err"], ms=r["ms"],
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                        bound_by=r["bound_by"], library_ms=None))
+                        bound_by=r["bound_by"],
+                        library_ms=r.get("library_ms")))
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

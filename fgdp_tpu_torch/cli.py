@@ -3,13 +3,19 @@
   python -m fgdp_tpu_torch index  <ref.fa> <out_prefix>   (bwa-mem2 index)
   python -m fgdp_tpu_torch mem    <prefix> <reads.fq> ... (bwa-mem2 mem,
                                                           single-end)
+  python -m fgdp_tpu_torch sormadup <in.sam> <out.bam>    (sormadup)
   python -m fgdp_tpu_torch mutect -R ref.fa -I tumor.bam [-N normal.bam]
                                   -O out.vcf              (Mutect2 +
                                                           FilterMutectCalls)
+  python -m fgdp_tpu_torch pipeline <prefix> <reads.fq> -O out.bam
+                                  [-t N] [--vcf out.vcf -R ref.fa
+                                  [-N normal.bam]]        (all three,
+                                                          stages overlapped)
 
-`mem` and `mutect` run on the CUDA card; --device cpu runs them on the
-CPU. Index files use the JAX package's .npz formats (<prefix>.ref, .fmi,
-.lcp), so either package reads the other's index.
+`mem`, `sormadup`, `mutect` and `pipeline` run on the CUDA card;
+--device cpu runs them on the CPU. Index files use the JAX package's
+.npz formats (<prefix>.ref, .fmi, .lcp), so either package reads the
+other's index.
 """
 
 from __future__ import annotations
@@ -134,13 +140,17 @@ def _timed_batches(paths, batch):
         yield b
 
 
+def _single_end(cmd, reads):
+    if len(reads) != 1:
+        raise SystemExit(f"{cmd}: the port aligns single-end reads only "
+                         "(one FASTQ)")
+
+
 def cmd_mem(args):
     from .pipeline_stream import stream_mem
     from .utils.profiling import PROF, SAM_IO
 
-    if len(args.reads) != 1:
-        raise SystemExit("mem: the port aligns single-end reads only "
-                         "(one FASTQ)")
+    _single_end("mem", args.reads)
     aligner = load_aligner(args.prefix, args.batch, opt=_mem_opt(args),
                            device=args.device)
     out = open(args.output, "w") if args.output else sys.stdout
@@ -157,12 +167,45 @@ def cmd_mem(args):
             dt = max(time.time() - t0, 1e-9)
             print(f"[mem] {n} reads, {n/dt:.0f} reads/s", file=sys.stderr)
 
-        n = stream_mem(aligner, _timed_batches(args.reads, args.batch),
-                       write_line, progress=progress)
+        batches = _timed_batches(args.reads, args.batch)
+        if args.finalize_workers > 0:
+            from .pipeline_stream import FinalizePool, stream_mem_pooled
+            pool = FinalizePool(args.prefix + ".ref", aligner.opt,
+                                args.finalize_workers)
+            try:
+                n = stream_mem_pooled(aligner, batches, write_line, pool,
+                                      progress=progress)
+            finally:
+                pool.shutdown()
+        else:
+            n = stream_mem(aligner, batches, write_line, progress=progress)
     finally:
         if args.output:
             out.close()
     PROF.display_stats(units=n, unit_name="reads")
+
+
+def cmd_sormadup(args):
+    from .sortdup.driver import sort_markdup, sort_markdup_file
+    from .utils.device import resolve_device
+    from .utils.profiling import PROF
+
+    device = resolve_device(args.device)
+    t0 = time.time()
+    if args.input == "-":
+        lines = sys.stdin.read().splitlines()
+        n, ndup = sort_markdup(lines, args.output,
+                               compress_level=args.compress_level,
+                               device=device)
+    else:
+        # mmap-backed streaming path (inputs larger than RAM)
+        n, ndup = sort_markdup_file(args.input, args.output,
+                                    compress_level=args.compress_level,
+                                    device=device)
+    print(f"[sormadup] {n} records, {ndup} duplicate pairs, "
+          f"{time.time()-t0:.1f}s -> {args.output}(.bai)", file=sys.stderr)
+    PROF.display_stats(units=n, unit_name="records")
+    return n, ndup
 
 
 def _bam_to_read_dicts(path):
@@ -294,6 +337,53 @@ def cmd_mutect(args):
           file=sys.stderr)
 
 
+def cmd_pipeline(args):
+    """FASTQ -> sorted+markdup BAM (-> VCF): the three programs chained
+    with stage overlap instead of materialized SAM pipes."""
+    from .pipeline_stream import stream_fastq_to_bam
+    from .utils.profiling import PROF
+
+    _single_end("pipeline", args.reads)
+    if args.vcf and not args.reference:
+        raise SystemExit("pipeline: --vcf needs -R ref.fa")
+    aligner = load_aligner(args.prefix, args.batch, device=args.device)
+    t0 = time.time()
+
+    def progress(n):
+        dt = max(time.time() - t0, 1e-9)
+        print(f"[pipeline] {n} reads aligned, {n/dt:.0f} reads/s",
+              file=sys.stderr)
+
+    pool = None
+    if args.finalize_workers > 0:
+        from .pipeline_stream import FinalizePool
+        pool = FinalizePool(args.prefix + ".ref", aligner.opt,
+                            args.finalize_workers)
+    try:
+        n, (nrec, ndup) = stream_fastq_to_bam(
+            aligner, _timed_batches(args.reads, args.batch), args.output,
+            compress_level=args.compress_level, progress=progress,
+            pool=pool)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    print(f"[pipeline] {nrec} records, {ndup} duplicate pairs -> "
+          f"{args.output}(.bai)", file=sys.stderr)
+    PROF.display_stats(units=n, unit_name="reads")
+    out = (n, nrec, ndup)
+    if args.vcf:
+        cmd_mutect(argparse.Namespace(
+            reference=args.reference, input=args.output,
+            normal=args.normal, output=args.vcf, device=args.device,
+            threads=args.threads, pon=None, callable_depth=None,
+            max_prob_propagation_distance=None,
+            active_probability_threshold=None,
+            assembly_region_padding=None, max_assembly_region_size=None,
+            min_assembly_region_size=None,
+            max_reads_per_alignment_start=None, kmer_size=None))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="fgdp-tpu-torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -334,7 +424,19 @@ def main(argv=None):
     pm.add_argument("-x", dest="read_type",
                     help="read type: pacbio/ont2d/intractg")
     pm.add_argument("-R", dest="rg", help="read group header line")
+    pm.add_argument("-t", "--finalize-workers", type=int, default=0,
+                    help="SAM-finalize worker processes (worker_sam "
+                         "team analogue) [0]")
     pm.set_defaults(fn=cmd_mem)
+
+    ps = sub.add_parser("sormadup")
+    ps.add_argument("input", help="SAM file, or - for stdin")
+    ps.add_argument("output")
+    ps.add_argument("-l", "--compress-level", type=int, default=6)
+    ps.add_argument("--device", default=None,
+                    help="torch device of the sort [cuda]; 'cpu' runs "
+                         "it on the CPU")
+    ps.set_defaults(fn=cmd_sormadup)
 
     pc = sub.add_parser("mutect")
     pc.add_argument("-R", "--reference", required=True)
@@ -363,8 +465,30 @@ def main(argv=None):
                     help="assembly kmer size (repeatable) [10, 25]")
     pc.set_defaults(fn=cmd_mutect)
 
+    pp = sub.add_parser("pipeline",
+                        help="fastq -> sorted/markdup BAM (-> VCF), "
+                             "stages overlapped")
+    pp.add_argument("prefix")
+    pp.add_argument("reads", nargs="+")
+    pp.add_argument("-O", "--output", required=True, help="output BAM")
+    pp.add_argument("-b", "--batch", type=int, default=512)
+    pp.add_argument("-l", "--compress-level", type=int, default=6)
+    pp.add_argument("-t", "--finalize-workers", type=int, default=0,
+                    help="SAM-finalize worker processes (worker_sam "
+                         "kt_for team analogue; 0 = in-process)")
+    pp.add_argument("--device", default=None,
+                    help="torch device [cuda]; 'cpu' runs every stage on "
+                         "the CPU")
+    pp.add_argument("--vcf", help="also call variants to this VCF")
+    pp.add_argument("--threads", type=int, default=1,
+                    help="mutect-stage host threads (threads-1 region "
+                         "workers), used only with --vcf [1]")
+    pp.add_argument("-R", "--reference", help="FASTA (required with --vcf)")
+    pp.add_argument("-N", "--normal", help="normal BAM (with --vcf)")
+    pp.set_defaults(fn=cmd_pipeline)
+
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

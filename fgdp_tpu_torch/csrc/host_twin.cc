@@ -1,6 +1,7 @@
 // Host twin of the CUDA kernels, for the CPU tests only: g++ builds the
-// kernels' own per-job (sw_extend.cuh), per-read (chain_loop.cuh) and
-// per-pair (pairhmm.cuh) logic into a plain C library, run serially, so
+// kernels' own per-job (sw_extend.cuh), per-read (chain_loop.cuh),
+// per-pair (pairhmm.cuh) and per-element (vpu_ceiling.cuh) logic into a
+// plain C library, run serially, so
 // the logic can be held against the plain PyTorch versions where there is
 // no nvcc. It builds with -ffp-contract=off, so that no multiply and add
 // fuse into one rounding, as on the card. The port's CPU path never calls
@@ -11,6 +12,7 @@
 #include "chain_loop.cuh"
 #include "pairhmm.cuh"
 #include "sw_extend.cuh"
+#include "vpu_ceiling.cuh"
 
 struct SerialLanes {
   int lane() const { return 0; }
@@ -74,4 +76,38 @@ extern "C" int fgdp_pairhmm_f32_host(const int* reads, const float* pq,
                           haps + (long long)p * H, rlens[p], hlens[p],
                           n_doubling, b, L);
   return 0;
+}
+
+template <int NCH>
+static void vpu_host(const void* x, void* out, long long n, int steps,
+                     int is_int, const VpuConsts& k) {
+  for (long long i = 0; i < n; ++i) {
+    if (is_int)
+      ((int*)out)[i] = vpu_int32_element<NCH>(((const int*)x)[i], steps, k);
+    else
+      ((float*)out)[i] =
+          vpu_fp32_element<NCH>(((const float*)x)[i], steps, k);
+  }
+}
+
+extern "C" int fgdp_vpu_ceiling_host(const void* x, void* out, long long n,
+                                     int steps, int n_chains, int is_int,
+                                     const float* scale, const float* mul,
+                                     const float* add, const int* seed,
+                                     const int* a, const int* b) {
+  VpuConsts k;
+  for (int i = 0; i < VPU_MAX_CHAINS; ++i) {
+    k.scale[i] = scale[i];
+    k.mul[i] = mul[i];
+    k.add[i] = add[i];
+    k.seed[i] = seed[i];
+    k.a[i] = a[i];
+    k.b[i] = b[i];
+  }
+  switch (n_chains) {
+    case 4: vpu_host<4>(x, out, n, steps, is_int, k); return 0;
+    case 8: vpu_host<8>(x, out, n, steps, is_int, k); return 0;
+    case 16: vpu_host<16>(x, out, n, steps, is_int, k); return 0;
+  }
+  return 1;
 }

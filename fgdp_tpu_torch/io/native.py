@@ -2,10 +2,13 @@
 
 The port builds its own copy of the library on first use (g++ -O3
 -shared) into build/fgdp_tpu_torch/ at the repository root, never into
-native/, and binds only the functions the alignment slice calls:
-parse_fastq_chunk, suffix_array_u8, lcp_tree_arrays and
-ksw_global_batch_native. The library is required: a failed build or
-load raises, so every run measures the same host code.
+native/, and binds the functions the port calls: parse_fastq_chunk,
+suffix_array_u8, lcp_tree_arrays and ksw_global_batch_native for
+alignment; parse_sam_numeric, assign_rid_pairid, encode_bam_records and
+bgzf_compress_parallel for the sort. The library is required: a failed
+build or load raises, and so does a call that the library refuses (the
+JAX package falls back to Python there), so every run measures the same
+host code.
 """
 
 from __future__ import annotations
@@ -60,6 +63,10 @@ def get_lib():
     lib.suffix_array_u8.restype = ctypes.c_int64
     lib.ksw_global_batch_native.restype = ctypes.c_int
     lib.lcp_tree_arrays.restype = ctypes.c_int
+    lib.parse_sam_numeric.restype = ctypes.c_long
+    lib.assign_rid_pairid.restype = None
+    lib.encode_bam_records.restype = ctypes.c_int64
+    lib.bgzf_compress_parallel.restype = ctypes.c_int64
     _lib = lib
     return _lib
 
@@ -87,6 +94,121 @@ def parse_fastq_chunk(data: bytes, max_reads: int, max_len: int,
     name_list = [bytes(names[i]).rstrip(b"\0").decode()
                  for i in range(n)]
     return (name_list, codes[:n], quals[:n], lens[:n], consumed.value)
+
+
+def parse_sam_numeric(data: bytes, max_recs: int):
+    """Returns dict of numeric per-record arrays + line/column offsets."""
+    lib = get_lib()
+    i32 = lambda: np.zeros(max_recs, np.int32)
+    i64 = lambda: np.zeros(max_recs, np.int64)
+    out = dict(flag=i32(), pos=i64(), mapq=i32(), lead_clip=i32(),
+               tail_clip=i32(), ref_len=i32(), score=i32(), tile=i32(),
+               tx=i32(), ty=i32(), line_start=i64(), line_end=i64(),
+               qn_start=i64(), qn_end=i64(), rn_start=i64(), rn_end=i64())
+    n = lib.parse_sam_numeric(
+        data, ctypes.c_long(len(data)), ctypes.c_long(max_recs),
+        _ptr(out["flag"], ctypes.c_int32), _ptr(out["pos"], ctypes.c_int64),
+        _ptr(out["mapq"], ctypes.c_int32),
+        _ptr(out["lead_clip"], ctypes.c_int32),
+        _ptr(out["tail_clip"], ctypes.c_int32),
+        _ptr(out["ref_len"], ctypes.c_int32),
+        _ptr(out["score"], ctypes.c_int32),
+        _ptr(out["tile"], ctypes.c_int32), _ptr(out["tx"], ctypes.c_int32),
+        _ptr(out["ty"], ctypes.c_int32),
+        _ptr(out["line_start"], ctypes.c_int64),
+        _ptr(out["line_end"], ctypes.c_int64),
+        _ptr(out["qn_start"], ctypes.c_int64),
+        _ptr(out["qn_end"], ctypes.c_int64),
+        _ptr(out["rn_start"], ctypes.c_int64),
+        _ptr(out["rn_end"], ctypes.c_int64))
+    return {k: v[:n] for k, v in out.items()}
+
+
+def _name_table(names):
+    """Concatenated NUL-separated contig names + int32 offsets."""
+    offs = np.zeros(max(len(names), 1), np.int32)
+    blob = bytearray()
+    for i, nm in enumerate(names):
+        offs[i] = len(blob)
+        blob += nm.encode() + b"\0"
+    return bytes(blob), offs
+
+
+def assign_rid_pairid(data: bytes, parsed: dict, names):
+    """rid + pair_id for records from parse_sam_numeric (BamParser
+    pop_record pairing, sortmardup/tbb/bam_parser.cpp:76-128).
+    Returns (rid int32[n], pair_id int64[n])."""
+    lib = get_lib()
+    n = len(parsed["flag"])
+    blob, offs = _name_table(names)
+    rid = np.zeros(n, np.int32)
+    pair_id = np.zeros(n, np.int64)
+    lib.assign_rid_pairid(
+        data, ctypes.c_long(n),
+        _ptr(parsed["qn_start"], ctypes.c_int64),
+        _ptr(parsed["qn_end"], ctypes.c_int64),
+        _ptr(parsed["rn_start"], ctypes.c_int64),
+        _ptr(parsed["rn_end"], ctypes.c_int64),
+        _ptr(parsed["flag"], ctypes.c_int32),
+        blob, _ptr(offs, ctypes.c_int32), ctypes.c_long(len(names)),
+        _ptr(rid, ctypes.c_int32), _ptr(pair_id, ctypes.c_int64))
+    return rid, pair_id
+
+
+def encode_bam_records(data: bytes, line_start, line_end, flag_override,
+                       names):
+    """Encode SAM lines (in the given order) to concatenated raw BAM
+    records. Returns (payload bytes, rec_off int64[n+1], rid int32[n],
+    pos int64[n], rlen int32[n]); raises on a line the encoder refuses
+    (fewer than 11 columns, an unknown CIGAR operation)."""
+    lib = get_lib()
+    n = len(line_start)
+    line_start = np.ascontiguousarray(line_start, np.int64)
+    line_end = np.ascontiguousarray(line_end, np.int64)
+    flag_override = np.ascontiguousarray(flag_override, np.int32)
+    blob, offs = _name_table(names)
+    text_bytes = int((line_end - line_start).sum()) if n else 0
+    cap = text_bytes + 256 * max(n, 1) + 1024
+    out = np.empty(cap, np.uint8)
+    rec_off = np.zeros(n + 1, np.int64)
+    rid = np.zeros(n, np.int32)
+    pos = np.zeros(n, np.int64)
+    rlen = np.zeros(n, np.int32)
+    w = lib.encode_bam_records(
+        data, _ptr(line_start, ctypes.c_int64),
+        _ptr(line_end, ctypes.c_int64),
+        _ptr(flag_override, ctypes.c_int32), ctypes.c_long(n),
+        blob, _ptr(offs, ctypes.c_int32), ctypes.c_long(len(names)),
+        _ptr(out, ctypes.c_char), ctypes.c_int64(cap),
+        _ptr(rec_off, ctypes.c_int64), _ptr(rid, ctypes.c_int32),
+        _ptr(pos, ctypes.c_int64), _ptr(rlen, ctypes.c_int32))
+    if w < 0:
+        raise ValueError("encode_bam_records refused a SAM line (fewer "
+                         "than 11 columns or a bad CIGAR)")
+    return bytes(out[:w]), rec_off, rid, pos, rlen
+
+
+def bgzf_compress(data: bytes, level: int = 6, threads: int = 8):
+    """Parallel BGZF compression (native/fgdp_native.cc pthread pool).
+    Returns (compressed bytes, block_table [(ustart, coff, ulen)]) with
+    io/bgzf.compress_stream semantics."""
+    lib = get_lib()
+    MAX_BLOCK = 0xFF00
+    n = len(data)
+    n_blocks = max((n + MAX_BLOCK - 1) // MAX_BLOCK, 1)
+    stride = 0x10000 + 64
+    out = np.empty(n_blocks * stride, np.uint8)
+    coff = np.zeros(n_blocks + 1, np.int64)
+    w = lib.bgzf_compress_parallel(
+        data, ctypes.c_int64(n), ctypes.c_int(level), ctypes.c_int(threads),
+        _ptr(out, ctypes.c_char), ctypes.c_int64(stride),
+        _ptr(coff, ctypes.c_int64))
+    if w < 0:
+        raise RuntimeError("bgzf_compress_parallel failed")
+    table = [(b * MAX_BLOCK, int(coff[b]),
+              min(n - b * MAX_BLOCK, MAX_BLOCK) if n else 0)
+             for b in range(n_blocks)]
+    return bytes(out[:w]), table
 
 
 def ksw_global_batch(queries, qlens, targets, tlens, ws, o_del, e_del,

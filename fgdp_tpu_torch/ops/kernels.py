@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, pairhmm.cu) is
-compiled by nvcc for sm_90a into its own shared library with a plain C
+Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, pairhmm.cu,
+and the probes' vpu_ceiling.cu and gather_rows.cu) is compiled by nvcc for sm_90a into its own shared library with a plain C
 interface under build/fgdp_tpu_torch/ at the repository root, and bound
 with ctypes. The build happens at first use (one nvcc per source, all started
 together) and again whenever a source is newer than its library.
@@ -27,12 +27,13 @@ import time
 from ..io.native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-KERNELS = ("chain_loop", "pairhmm", "sw_extend")
+KERNELS = ("chain_loop", "gather_rows", "pairhmm", "sw_extend",
+           "vpu_ceiling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point: every pointer and the stream as
 # c_void_p (ctypes would cut a Python int to 32 bits otherwise)
 _SIGS = {
@@ -42,6 +43,9 @@ _SIGS = {
     "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
     "fgdp_pairhmm_f32": [_P] * 6 + [_I] * 4 + [_P] + [_P],
     "fgdp_pairhmm_f32_host": [_P] * 6 + [_I] * 4 + [_P],
+    "fgdp_vpu_ceiling": [_P, _P, _LL] + [_I] * 3 + [_P] * 6 + [_P],
+    "fgdp_vpu_ceiling_host": [_P, _P, _LL] + [_I] * 3 + [_P] * 6,
+    "fgdp_gather_rows": [_P] * 3 + [_LL] + [_I] * 2 + [_P],
 }
 
 _libs: dict = {}

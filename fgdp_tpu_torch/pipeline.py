@@ -457,10 +457,14 @@ class Aligner:
 def finalize_se_batch(pref, opt, shapes, names, seq_codes, quals, regs_np,
                       id0):
     """Host finalize for a single-end batch: device regs -> SAM lines.
-    Module-level and numpy-only."""
+    Module-level and numpy-only so worker processes can run it
+    (pipeline_stream.FinalizePool)."""
     reg_lists = _reg_lists_np(pref, opt, seq_codes, regs_np)
-    # ids feed the hash_64 tie-breaks: each read's global index
-    ids = id0 + np.arange(len(reg_lists))
+    # id0 may be a scalar base (ids = id0 + row) or a per-read id array
+    # (the deferred-escalation flush finalizes reads gathered from many
+    # batches; ids feed the hash_64 tie-breaks so they must be the
+    # reads' ORIGINAL global ids for output identical to the sync path)
+    ids = id0 if np.ndim(id0) else id0 + np.arange(len(reg_lists))
     # batch the reg2aln DP (CIGAR/MD) across the whole read batch
     jobs = []
     job_of = []

@@ -1,21 +1,37 @@
-"""Streaming stage overlap for `mem` — the kt_pipeline analogue.
+"""Streaming stage-overlap drivers — the pipeline-parallel analogue.
 
-The reference overlaps its aligner's stages with a 3-step pthread
-pipeline (read chunk -> align -> write SAM) that keeps I/O off the
-compute path (kt_pipeline, bwa-mem2-lcp/src/fastmap.cpp:191-368, two
-in-flight batches). Here a prefetch thread decodes FASTQ while the
-device aligns, and a writer thread drains SAM lines.
+The reference overlaps its stages two ways:
+  * within the aligner, a 3-step pthread pipeline (read chunk -> align
+    -> write SAM) keeps I/O off the compute path (kt_pipeline,
+    bwa-mem2-lcp/src/fastmap.cpp:191-368, two in-flight batches);
+  * between programs, SAM is piped: sormadup ingests the aligner's
+    stdout on a dedicated reader thread while shuffle threads parse
+    bulks behind it (sortmardup/main.cpp:84-212), and only the final
+    sort waits for all input.
 
-Port of the parts of the JAX package's pipeline_stream.py that
-single-end `mem` uses; the sort/markdup streaming stages are not part of
-the port yet.
+Here the same structure runs around the card: a prefetch thread decodes
+FASTQ while the device aligns, a writer thread drains SAM lines, and
+`StreamingSortMarkdup` runs the native pass-1 parse (numeric key
+extraction + rid/pairID assignment) chunk-by-chunk behind the aligner —
+at finish only the global dup-scan + coordinate sort + encode remain.
+Chunks split on QNAME boundaries so mate pairs never straddle a parse
+unit (main.cpp:532-544). `FinalizePool` fans the host SAM finalize out
+to spawned worker processes, which never touch the card.
+
+Port of the JAX package's pipeline_stream.py for single-end reads.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 
+import numpy as np
+
+from .io import native
+from .io.sam import SamHeader
+from .sortdup import driver as sddriver
 from .utils.profiling import PROF
 
 _STOP = object()
@@ -93,14 +109,14 @@ class LineWriter:
             raise self._err
 
 
-def overlapped_regs(aligner, batch_iter, depth: int = 2):
+def overlapped_regs(aligner, batch_iter, depth: int = 2,
+                    sync_retry: bool = True):
     """Generator keeping `depth` device align dispatches queued ahead of
     the host-side conversion, so the host finalizes batch i while later
-    batches are queued on the device.
+    batches are queued on the device. With sync_retry=False overflowed
+    reads come back unescalated (the caller defers them).
 
     Yields (names, seqs, quals, regs_np, id0); id0 counts reads."""
-    import collections
-
     pending = collections.deque()
     n = 0
     for names, seqs, quals in batch_iter:
@@ -110,12 +126,13 @@ def overlapped_regs(aligner, batch_iter, depth: int = 2):
         if len(pending) > depth:
             nm, sq, ql, rd, i0 = pending.popleft()
             with PROF.phase("REG_SYNC"):
-                regs_np = aligner._regs_to_np(rd, sq)
+                regs_np = aligner._regs_to_np(rd, sq if sync_retry
+                                              else None)
             yield nm, sq, ql, regs_np, i0
     while pending:
         nm, sq, ql, rd, i0 = pending.popleft()
         with PROF.phase("REG_SYNC"):
-            regs_np = aligner._regs_to_np(rd, sq)
+            regs_np = aligner._regs_to_np(rd, sq if sync_retry else None)
         yield nm, sq, ql, regs_np, i0
 
 
@@ -132,6 +149,309 @@ def stream_mem(aligner, batch_iter, write_line, depth: int = 2,
             n = i0 + len(nm)
             if progress is not None:
                 progress(n)
+    finally:
+        writer.close()
+    return n
+
+
+class StreamingSortMarkdup:
+    """sormadup with streamed ingest: pass-1 parse runs on a worker
+    thread per fed chunk; finish() runs the global dup scan + sort +
+    encode (the reference's reader/shuffle-vs-sort split) on `device`."""
+
+    def __init__(self, header_lines, out_bam_path, compress_level: int = 6,
+                 device=None):
+        import tempfile
+
+        from .utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.header_lines = [ln.rstrip("\n") for ln in header_lines]
+        self.header = SamHeader.parse(self.header_lines)
+        self.out_bam_path = out_bam_path
+        self.compress_level = compress_level
+        self._q = queue.Queue(maxsize=4)
+        # chunk text spills to disk (pass-2 re-reads it via mmap, the
+        # same larger-than-RAM design as sort_markdup_file): resident
+        # state is the numeric key arrays only
+        self._spill = tempfile.NamedTemporaryFile(prefix="fgdp_sd_")
+        self._spill_off = 0
+        self._chunks = []          # (base_offset, parsed, rid, pair_id)
+        self._holdback = ""        # lines sharing the last QNAME
+        self._err = None
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    # ---- worker ----
+    def _run(self):
+        while True:
+            chunk = self._q.get()
+            if chunk is _STOP:
+                return
+            if self._err is not None:
+                continue                   # drain: keep the producer moving
+            try:
+                buf = chunk.encode()
+                parsed = native.parse_sam_numeric(buf, buf.count(b"\n") + 1)
+                rid, pair_id = native.assign_rid_pairid(buf, parsed,
+                                                        self.header.names)
+                self._spill.write(buf)
+                self._chunks.append((self._spill_off, parsed, rid, pair_id))
+                self._spill_off += len(buf)
+            except BaseException as e:     # re-raised by feed()/finish()
+                self._err = e
+
+    # ---- producer API ----
+    def feed(self, lines):
+        """Feed SAM body lines (no header). Splits on QNAME boundaries
+        so mates stay within one parse unit (main.cpp:532-544)."""
+        if self._err is not None:
+            raise self._err
+        body = [ln.rstrip("\n") for ln in lines
+                if ln and not ln.startswith("@")]
+        if not body:
+            return
+        last_qn = body[-1].split("\t", 1)[0]
+        cut = len(body)
+        while cut > 0 and body[cut - 1].split("\t", 1)[0] == last_qn:
+            cut -= 1
+        text = self._holdback + "".join(ln + "\n" for ln in body[:cut])
+        self._holdback = "".join(ln + "\n" for ln in body[cut:])
+        if text:
+            self._q.put(text)
+
+    def finish(self):
+        """Returns (n_records, n_dup_pairs); writes BAM + BAI."""
+        if self._holdback:
+            self._q.put(self._holdback)
+            self._holdback = ""
+        self._q.put(_STOP)
+        self._t.join()
+        if self._err is not None:
+            raise self._err
+        if not self._chunks:
+            self._spill.close()
+            return sddriver.sort_markdup(self.header_lines,
+                                         self.out_bam_path,
+                                         self.compress_level, self.device)
+        # merge chunk arrays; shift byte offsets and pairIDs
+        bases, parsed_list, rids, pids = zip(*self._chunks)
+        off_keys = ("line_start", "line_end", "qn_start", "qn_end",
+                    "rn_start", "rn_end")
+        merged = {}
+        for k in parsed_list[0]:
+            parts = [p[k] + (bases[i] if k in off_keys else 0)
+                     for i, p in enumerate(parsed_list)]
+            merged[k] = np.concatenate(parts)
+        pid_out, pid_base = [], 0
+        for p in pids:
+            p = np.asarray(p, np.int64)
+            pid_out.append(np.where(p > 0, p + pid_base, 0))
+            pid_base += int(p.max(initial=0))
+        rid = np.concatenate(rids)
+        pair_id = np.concatenate(pid_out)
+        import ctypes
+        import mmap as mmap_mod
+
+        self._spill.flush()
+        try:
+            with mmap_mod.mmap(self._spill.fileno(), 0,
+                               access=mmap_mod.ACCESS_COPY) as mm:
+                buf = (ctypes.c_char * len(mm)).from_buffer(mm)
+                res = sddriver._native_pass2(
+                    buf, merged, rid, pair_id, self.header,
+                    self.out_bam_path, self.compress_level, self.device)
+                del buf        # release the exported buffer before close
+            return res
+        finally:
+            self._spill.close()
+
+
+class _DeferredEscalation:
+    """Escalated-read pool for the sort-bound stream: overflowed reads
+    are pulled out of their batch and re-run through the escalation
+    ladder in ONE widened launch per `cap` reads, instead of one
+    serialized launch per overflowing batch. Legal only when the
+    downstream re-sorts (the coordinate sort destroys read order); the
+    SAM-order `mem` path keeps the synchronous per-batch retry.
+    Original global read ids ride along so the hash_64 dedup/primary
+    tie-breaks produce the same records and dup flags as the sync path;
+    record ORDER within a tied unified coordinate may differ (the
+    coordinate sort breaks ties by stream-arrival index, and deferred
+    reads arrive at the stream tail — sortdup/engine.py
+    coordinate_sort_order)."""
+
+    def __init__(self, aligner, cap: int = 0):
+        self.aligner = aligner
+        self.cap = cap or aligner.shapes.batch_reads
+        self.rows = []          # (name, seq, qual, gid, {field: row})
+
+    def split(self, nm, sq, ql, regs_np, i0):
+        """Strip overflowed reads from the batch into the pool; returns
+        the kept (names, seqs, quals, regs_np, ids) or None."""
+        ovf = np.asarray(regs_np["overflow"])
+        if not ovf.any():
+            return nm, sq, ql, regs_np, i0 + np.arange(len(nm))
+        for b in np.flatnonzero(ovf):
+            self.rows.append((nm[b], sq[b], ql[b] if ql else None,
+                              i0 + int(b),
+                              {k: v[b] for k, v in regs_np.items()}))
+        keep = np.flatnonzero(~ovf)
+        if len(keep) == 0:
+            return None
+        return ([nm[b] for b in keep], [sq[b] for b in keep],
+                [ql[b] for b in keep] if ql else None,
+                {k: v[keep] for k, v in regs_np.items()}, i0 + keep)
+
+    def flush_one(self, count: int):
+        """Escalate + return the oldest `count` pooled reads as a
+        (names, seqs, quals, regs_np, ids) batch (device launch here)."""
+        rows, self.rows = self.rows[:count], self.rows[count:]
+        nm = [r[0] for r in rows]
+        sq = [r[1] for r in rows]
+        ql = [r[2] for r in rows]
+        if all(q is None for q in ql):
+            ql = None
+        ids = np.asarray([r[3] for r in rows])
+        regs_np = {k: np.stack([r[4][k] for r in rows])
+                   for k in rows[0][4]}
+        return nm, sq, ql, self.aligner._retry_overflow(regs_np, sq), ids
+
+
+def stream_fastq_to_bam(aligner, batch_iter, out_bam_path,
+                        compress_level: int = 6, depth: int = 2,
+                        progress=None, pool=None):
+    """Single-end aligner stage piped straight into the streaming
+    sormadup — the inter-program pipe of the reference, without
+    materialized SAM. The sort runs on the aligner's device.
+
+    With `pool` (a FinalizePool), host SAM finalization fans out to
+    worker processes while the device aligns ahead — the full
+    three-program overlap (align / finalize / sort+markdup) in one
+    process tree. Returns (reads, (n_records, n_dup_pairs))."""
+    sd = StreamingSortMarkdup(list(aligner.sam_header()), out_bam_path,
+                              compress_level, aligner.device)
+    n = 0
+    defer = _DeferredEscalation(aligner)
+
+    def batches():
+        nonlocal n
+        for nm, sq, ql, regs_np, i0 in overlapped_regs(
+                aligner, Prefetcher(batch_iter, depth), depth,
+                sync_retry=False):
+            n = i0 + len(nm)
+            kept = defer.split(nm, sq, ql, regs_np, i0)
+            if kept is not None:
+                yield kept
+            while len(defer.rows) >= defer.cap:
+                yield defer.flush_one(defer.cap)
+        while defer.rows:
+            yield defer.flush_one(defer.cap)
+
+    if pool is None:
+        for nm, sq, ql, regs_np, ids in batches():
+            sd.feed(aligner.finalize_batch(nm, sq, ql, regs_np, ids))
+            if progress is not None:
+                progress(n)
+    else:
+        pending = collections.deque()
+        for nm, sq, ql, regs_np, ids in batches():
+            with PROF.phase("POOL_SUBMIT"):
+                pending.append(pool.submit(nm, sq, ql, regs_np, ids))
+            while len(pending) > depth:
+                with PROF.phase("POOL_WAIT"):
+                    lines = pending.popleft().result()
+                with PROF.phase("SORT_FEED"):
+                    sd.feed(lines)
+            if progress is not None:
+                progress(n)
+        while pending:
+            with PROF.phase("POOL_WAIT"):
+                lines = pending.popleft().result()
+            with PROF.phase("SORT_FEED"):
+                sd.feed(lines)
+    with PROF.phase("SORT_FINISH"):
+        out = sd.finish()
+    return n, out
+
+
+# ----------------------------------------------------------------------
+# Finalize worker pool: the host-side SAM finalization (pure-Python
+# CIGAR/MD/tag work) is spread over worker processes, as the reference
+# spreads it over its worker_sam kt_for team (src/bwamem.cpp:1845).
+# Spawned processes each load the packed reference from the index
+# artifact and run pipeline.finalize_se_batch; they never touch the card.
+# ----------------------------------------------------------------------
+
+_W_PREF = None
+_W_OPT = None
+
+
+def _worker_warm(dt):
+    import time
+    time.sleep(dt)
+    return 0
+
+
+def _finalize_worker_init(pref_path, opt):
+    global _W_PREF, _W_OPT
+    from .index.reference import PackedReference
+
+    _W_PREF = PackedReference.load(pref_path)
+    _W_OPT = opt
+
+
+def _finalize_worker_run(args):
+    from . import pipeline as pipemod
+
+    names, seqs, quals, regs_np, id0 = args
+    return pipemod.finalize_se_batch(_W_PREF, _W_OPT, None, names, seqs,
+                                     quals, regs_np, id0)
+
+
+class FinalizePool:
+    """Process pool for single-end finalize; submission order is
+    delivery order."""
+
+    def __init__(self, pref_path: str, opt, workers: int):
+        import concurrent.futures
+        import multiprocessing
+
+        self._ex = concurrent.futures.ProcessPoolExecutor(
+            max_workers=workers, mp_context=multiprocessing.get_context(
+                "spawn"),
+            initializer=_finalize_worker_init, initargs=(pref_path, opt))
+        # force every worker to spawn now (spawn is lazy)
+        list(self._ex.map(_worker_warm, [0.2] * workers))
+
+    def submit(self, names, seqs, quals, regs_np, id0):
+        seqs = [np.asarray(s) for s in seqs]
+        return self._ex.submit(_finalize_worker_run,
+                               (names, seqs, quals, regs_np, id0))
+
+    def shutdown(self):
+        self._ex.shutdown()
+
+
+def stream_mem_pooled(aligner, batch_iter, write_line, pool: FinalizePool,
+                      depth: int = 3, progress=None):
+    """stream_mem with finalize fanned out to worker processes. The
+    device stays busy while N workers chew the Python SAM work; lines
+    are written in submission order."""
+    writer = LineWriter(write_line, depth=2 * depth)
+    pending = collections.deque()
+    n = 0
+    try:
+        for nm, sq, ql, regs_np, i0 in overlapped_regs(
+                aligner, Prefetcher(batch_iter, depth), depth):
+            pending.append(pool.submit(nm, sq, ql, regs_np, i0))
+            n = i0 + len(nm)
+            while len(pending) > depth:
+                writer.put(pending.popleft().result())
+            if progress is not None:
+                progress(n)
+        while pending:
+            writer.put(pending.popleft().result())
     finally:
         writer.close()
     return n

@@ -1,8 +1,9 @@
-"""The CUDA kernels, the aligner and the caller on the card (marked
-`cuda`: these skip where there is no card). Each kernel must equal its
-plain PyTorch version on the same CUDA inputs exactly, the aligner on the
-card must write the same SAM lines as on the CPU, and the caller the same
-calls.
+"""The CUDA kernels, the aligner, the sort and the caller on the card
+(marked `cuda`: these skip where there is no card). Each kernel must
+equal its plain PyTorch version on the same CUDA inputs (exactly, but
+for the FP32 issue probe's fused multiply-adds), the aligner on the card
+must write the same SAM lines as on the CPU, `sormadup` the same BAM and
+BAI bytes, and the caller the same calls.
 
 This file imports neither jax nor fgdp_tpu, so it runs on a machine
 that has only the port's dependencies; tests/conftest.py sets up JAX, so
@@ -11,7 +12,8 @@ run it there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 It also holds the seeded inputs that test_torch_sw.py,
-test_torch_chain.py and test_torch_pairhmm.py share with it."""
+test_torch_chain.py, test_torch_pairhmm.py and test_torch_sortdup.py
+share with it."""
 
 import os
 
@@ -159,6 +161,75 @@ HMM_CASES = {
 }
 
 
+HEADER = ["@HD\tVN:1.6\tSO:unsorted",
+          "@SQ\tSN:chr1\tLN:10000",
+          "@SQ\tSN:chr2\tLN:5000"]
+
+
+def _rec(qname, flag, rname, pos, cigar="100M", mapq=60, rnext="*",
+         pnext=0, tlen=0, seq=None, qual=None, tags=()):
+    seq = seq or "A" * 100
+    qual = qual or "I" * 100
+    return "\t".join([qname, str(flag), rname, str(pos), str(mapq), cigar,
+                      rnext, str(pnext), str(tlen), seq, qual, *tags])
+
+
+def random_sam(seed, n_pairs=200, n_singles=60):
+    """Pairs and singles clustered on few positions (runs of duplicates).
+    A third of the names carry no tile:x:y and a third of the reads
+    share one quality string, so whole runs tie on every key; some reads
+    start at chr1:1-3 behind a soft clip (negative 5' positions); a few
+    pairs carry a secondary record between the mates."""
+    rng = np.random.default_rng(seed)
+    flat = "I" * 100
+    groups = []
+    hot = [int(rng.integers(1, 9000)) for _ in range(max(n_pairs // 8, 3))]
+    hot[:3] = [1, 2, 3]
+
+    def name(prefix, i):
+        if rng.random() < 1 / 3:
+            return f"{prefix}{i}"                   # tile = x = y = 0
+        t, x, y = (int(rng.integers(1, 100)), int(rng.integers(1, 30000)),
+                   int(rng.integers(1, 30000)))
+        return f"{prefix}1:{i}:FC:1:{t}:{x}:{y}"
+
+    def qual():
+        if rng.random() < 1 / 3:
+            return flat
+        return "".join(chr(33 + int(rng.integers(2, 41))) for _ in range(100))
+
+    for i in range(n_pairs):
+        pos1 = hot[int(rng.integers(0, len(hot)))] + int(rng.integers(0, 2))
+        pos2 = pos1 + int(rng.choice([120, 180, 250]))
+        q, ql = name("M", i), qual()
+        cig1 = "100M" if rng.random() < 0.6 else "5S95M"
+        cig2 = "100M" if rng.random() < 0.7 else "90M10S"
+        mates = [_rec(q, 0x63, "chr1", pos1, cig1, rnext="=", pnext=pos2,
+                      tlen=pos2 - pos1 + 100, qual=ql,
+                      tags=("NM:i:0", "AS:i:95")),
+                 _rec(q, 0x93, "chr1", pos2, cig2, rnext="=", pnext=pos1,
+                      tlen=-(pos2 - pos1 + 100), qual=ql)]
+        if rng.random() < 0.05:            # a secondary inside the group
+            mates.insert(1, _rec(q, 0x163, "chr2", 40, rnext="chr1",
+                                 pnext=pos2))
+        groups.append(mates)
+    for i in range(n_singles):
+        pos = hot[int(rng.integers(0, len(hot)))]
+        flag = 0 if rng.random() < 0.5 else 0x10
+        on_chr2 = rng.random() < 0.3
+        cig = "100M" if rng.random() < 0.7 else "3S97M"
+        groups.append([_rec(name("S", i), flag,
+                            "chr2" if on_chr2 else "chr1",
+                            min(pos, 4800) if on_chr2 else pos, cig,
+                            qual=qual())])
+    groups += [[_rec("U1:0:FC:1:9:9:9", 0x4, "*", 0, "*")],
+               [_rec("M1:0:FC:1:9:9:9", 0x100, "chr1", 100)],
+               [_rec("M1:7:FC:1:9:9:9", 0x900, "chr1", 200)]]
+    # out of coordinate order, mates adjacent as an aligner writes them
+    # (pairing takes consecutive records of one QNAME)
+    return [ln for i in rng.permutation(len(groups)) for ln in groups[i]]
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -273,3 +344,92 @@ def test_caller_on_card_equals_cpu(dev):
         assert (a.pos, a.ref, a.alt, a.filters) == \
             (b.pos, b.ref, b.alt, b.filters)
         assert abs(a.tlod - b.tlod) <= 1e-4 and abs(a.nlod - b.nlod) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chains", [4, 8, 16])
+def test_vpu_ceiling_kernel_equals_plain(dev, n_chains):
+    from fgdp_tpu_torch.probes import vpu_ceiling as vc
+
+    rng = np.random.default_rng(n_chains)
+    xf = torch.as_tensor(rng.random((7, 300), np.float32), device=dev)
+    xi = torch.as_tensor(rng.integers(-2**31, 2**31, (7, 300))
+                         .astype(np.int32), device=dev)
+    n0 = kernels.LAUNCHES["vpu_ceiling"]
+    got = vc.vpu_ceiling(xf, vc.CHECK_STEPS, n_chains)
+    want = vc.vpu_ceiling_plain(xf, vc.CHECK_STEPS, n_chains)
+    assert torch.isfinite(want).all()
+    assert ((got - want).abs() / want.abs()).max() <= vc.FP32_RTOL
+    assert torch.equal(vc.vpu_ceiling(xi, 9, n_chains),
+                       vc.vpu_ceiling_plain(xi, 9, n_chains))
+    assert kernels.LAUNCHES["vpu_ceiling"] == n0 + 2
+
+
+@pytest.mark.cuda
+def test_vpu_ceiling_kernel_refuses_bad_arguments(dev):
+    from fgdp_tpu_torch.probes import vpu_ceiling as vc
+
+    n0 = kernels.LAUNCHES["vpu_ceiling"]
+    x = torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="n_chains"):
+        vc.vpu_ceiling_kernel(x, 3, 5)
+    with pytest.raises(ValueError, match="float32 or int32"):
+        vc.vpu_ceiling_kernel(x.double(), 3, 4)
+    assert kernels.LAUNCHES["vpu_ceiling"] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 8, 16, 32])
+def test_gather_rows_kernel_equals_plain(dev, depth):
+    from fgdp_tpu_torch.probes import gather
+
+    tbl = gather.table(dev, rows=5000)
+    for n in (1, 33, 1000):
+        idx = gather.indices(dev, n, seed=n, rows=5000)
+        assert torch.equal(gather.gather_rows(tbl, idx, depth),
+                           gather.gather_rows_plain(tbl, idx))
+    narrow = tbl[:, :12].contiguous()          # three 16-byte chunks
+    idx = gather.indices(dev, 70, seed=3, rows=5000)
+    assert torch.equal(gather.gather_rows(narrow, idx, depth),
+                       gather.gather_rows_plain(narrow, idx))
+    i0 = gather.indices(dev, 256, seed=4, rows=5000)
+    assert torch.equal(
+        gather.chain(tbl, i0, lambda t, i: gather.gather_rows(t, i, depth),
+                     steps=8),
+        gather.chain(tbl, i0, gather.gather_rows_plain, steps=8))
+
+
+@pytest.mark.cuda
+def test_gather_rows_kernel_refuses_bad_arguments(dev):
+    from fgdp_tpu_torch.probes import gather
+
+    tbl = gather.table(dev, rows=100)
+    idx = gather.indices(dev, 10, seed=0, rows=100)
+    n0 = kernels.LAUNCHES["gather_rows"]
+    for bad in (idx.clone().fill_(100), idx.clone().fill_(-1)):
+        with pytest.raises(ValueError, match="out of range"):
+            gather.gather_rows_kernel(tbl, bad)
+    with pytest.raises(ValueError, match="int32"):
+        gather.gather_rows_kernel(tbl.long(), idx)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gather.gather_rows_kernel(tbl[:, :6].contiguous(), idx)
+    with pytest.raises(ValueError, match="depth"):
+        gather.gather_rows_kernel(tbl, idx, depth=3)
+    with pytest.raises(ValueError, match="2-D"):
+        gather.gather_rows_kernel(tbl[0], idx)
+    assert kernels.LAUNCHES["gather_rows"] == n0
+
+
+@pytest.mark.cuda
+def test_sormadup_on_card_equals_cpu(dev, tmp_path):
+    from fgdp_tpu_torch import cli
+
+    sam = tmp_path / "in.sam"
+    sam.write_text("\n".join(HEADER + random_sam(11)) + "\n")
+    out = {}
+    for d in ("cuda", "cpu"):
+        bam = tmp_path / f"{d}.bam"
+        cli.main(["sormadup", str(sam), str(bam), "--device", d])
+        out[d] = (bam.read_bytes(),
+                  (tmp_path / f"{d}.bam.bai").read_bytes())
+    assert out["cuda"] == out["cpu"]

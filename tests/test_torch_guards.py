@@ -14,6 +14,7 @@ import torch
 
 from fgdp_tpu_torch.align import chain
 from fgdp_tpu_torch.ops import pairhmm, sw
+from fgdp_tpu_torch.probes import gather, vpu_ceiling
 from fgdp_tpu_torch.utils import device as devmod
 
 from test_torch_seeding import ONE_THREAD_ENV, one_torch_thread  # noqa: F401
@@ -50,9 +51,10 @@ def test_no_forbidden_import_in_source():
 
 
 def test_port_runs_with_jax_and_fgdp_tpu_blocked(tmp_path):
-    """Every port module imports, and a small CPU `mem` and the golden
-    `mutect` run, while a meta-path finder refuses jax and fgdp_tpu (a
-    subprocess: the test process itself has jax loaded)."""
+    """Every port module imports, and a small CPU `mem`, `sormadup` of its
+    SAM, `pipeline` and the golden `mutect` run, while a meta-path finder
+    refuses jax and fgdp_tpu (a subprocess: the test process itself has
+    jax loaded)."""
     script = textwrap.dedent(f"""
         import importlib, importlib.abc, os, pkgutil, sys
         BLOCK = {FORBIDDEN!r}
@@ -80,6 +82,13 @@ def test_port_runs_with_jax_and_fgdp_tpu_blocked(tmp_path):
                   "--device", "cpu", "-b", "64"])
         n = sum(1 for ln in open(out) if not ln.startswith("@"))
         assert n >= 150, n
+        bam = os.path.join({str(tmp_path)!r}, "out.bam")
+        cli.main(["sormadup", out, bam, "--device", "cpu"])
+        pbam = os.path.join({str(tmp_path)!r}, "pipe.bam")
+        cli.main(["pipeline", prefix, os.path.join(golden, "se.fq"), "-O",
+                  pbam, "--device", "cpu", "-b", "64"])
+        from fgdp_tpu_torch.io.bam import read_bam
+        assert read_bam(bam)[3] == read_bam(pbam)[3]
         mt = os.path.join(golden, "mutect")
         vcf = os.path.join({str(tmp_path)!r}, "out.vcf")
         cli.main(["mutect", "-R", os.path.join(mt, "ref.fa"),
@@ -99,7 +108,7 @@ def test_port_runs_with_jax_and_fgdp_tpu_blocked(tmp_path):
     assert r.stdout.strip().startswith("OK")
 
 
-def test_no_device_without_cuda_raises(monkeypatch):
+def test_no_device_without_cuda_raises(monkeypatch, tmp_path):
     from fgdp_tpu_torch.index.fmindex import FMIndex
     from fgdp_tpu_torch.index.reference import DeviceReference, PackedReference
     from fgdp_tpu_torch.ops.fm import DeviceFMIndex
@@ -126,6 +135,18 @@ def test_no_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["mutect", "-R", os.path.join(mt, "ref.fa"), "-I",
                   os.path.join(mt, "tumor.bam"), "-O", os.devnull])
+    sam = os.path.join(ROOT, "tests", "golden", "se.oracle.sam")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["sormadup", sam, os.devnull])
+    prefix = str(tmp_path / "idx")
+    cli.main(["index", os.path.join(ROOT, "tests", "golden", "ref.fa"),
+              prefix])
+    for cmd in ("pipeline", "mem"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([cmd, prefix, os.path.join(ROOT, "tests", "golden",
+                                                "se.fq"),
+                      "-O" if cmd == "pipeline" else "-o", os.devnull,
+                      "-t", "2"])
     assert Mutect2Engine(np.zeros(100, np.uint8), "c",
                          device="cpu").device.type == "cpu"
     assert devmod.resolve_device("cpu").type == "cpu"
@@ -156,12 +177,20 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch):
                         lambda *a, **k: calls.append("chain"))
     monkeypatch.setattr(pairhmm, "forward_f32_kernel",
                         lambda *a, **k: calls.append("pairhmm"))
+    monkeypatch.setattr(vpu_ceiling, "vpu_ceiling_plain", fail_plain)
+    monkeypatch.setattr(gather, "gather_rows_plain", fail_plain)
+    monkeypatch.setattr(vpu_ceiling, "vpu_ceiling_kernel",
+                        lambda *a, **k: calls.append("vpu"))
+    monkeypatch.setattr(gather, "gather_rows_kernel",
+                        lambda *a, **k: calls.append("gather"))
     p = sw.SWParams(6, 1, 6, 1, 100, 5, 1)
     stub = _CudaStub()
     sw.sw_extend(stub, stub, stub, stub, stub, 100, p)
     chain.chain_loop(stub, stub, stub, stub, stub, stub, 10, 4, 100, 1000)
     pairhmm.forward_f32_any(stub, stub, stub, stub, stub, stub)
-    assert calls == ["sw", "chain", "pairhmm"]
+    vpu_ceiling.vpu_ceiling(stub, 3, 4)
+    gather.gather_rows(stub, stub)
+    assert calls == ["sw", "chain", "pairhmm", "vpu", "gather"]
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
