@@ -14,7 +14,9 @@ fails loudly:
   3. kernels  each kernel against its plain PyTorch version on the card
               at the main paths' shapes (seeded inputs; SW and chain loop
               exactly equal, PairHMM within rtol 1e-5 / log10 1e-5 and
-              its f64 re-run on a batch that underflows)
+              its f64 re-run on a batch that underflows); for SW also its
+              warp rows, the row loop's SASS instructions (cuobjdump) and
+              each query-length class's share of its time
   4. golden   `index` + `mem` on the golden fixtures, field-compared with
               the reference aligner's SAM like tests/test_golden.py
   5. ladder   a tight-capacity batch through every escalation rung on
@@ -22,7 +24,8 @@ fails loudly:
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
               reference (scripts/gen_genome.py's generator) and 16,384
               single-end 151 bp reads; launch counts, reads/s, per-stage
-              ms, peak device memory, and placement accuracy
+              ms, the SW kernel's summed time (CUDA events around every
+              launch), peak device memory, and placement accuracy
   7. mutect_golden  `mutect` on tests/golden/mutect on the card, held
               against the reference binary's golden.vcf by
               tests/test_golden_vcf.py's rules
@@ -256,12 +259,16 @@ def phase_card():
     import torch
     from fgdp_tpu_torch.probes import card
     name, lanes = card()
+    # warp instructions issued per second: 4 schedulers per SM, one each
+    # per clock
+    issue = lanes["sms"] * 4 * lanes["mhz"] * 1e6
     log(f"[card] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
         f" x{torch.cuda.device_count()}; {lanes['sms']} SMs, max SM clock "
         f"{lanes['mhz']} MHz: FP32 {lanes['fp32'] / 1e12:.2f} T/s, INT32 "
-        f"{lanes['int32'] / 1e12:.2f} T/s (an FMA counted once)")
-    return name, dict(fp32=lanes["fp32"], int32=lanes["int32"])
+        f"{lanes['int32'] / 1e12:.2f} T/s (an FMA counted once), "
+        f"{issue / 1e12:.3f} T warp instructions/s")
+    return name, dict(fp32=lanes["fp32"], int32=lanes["int32"], issue=issue)
 
 
 def phase_build():
@@ -303,20 +310,36 @@ def phase_kernels(dev, rates):
                             for a in sw_inputs(11, J, QP, TP))
     p = sw.SWParams(opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.zdrop,
                     opt.pen_clip5, opt.a, opt.b)
+    K = -(-(QP + 2) // 32)
+    row_instr = sass_row_instructions(K)
     for w in (opt.w, 2 * opt.w):
         cells = torch.zeros(J, dtype=torch.int64, device=dev)
-        got = sw.sw_extend_kernel(q, qlen, t, tlen, h0, w, p, cells=cells)
+        n_rows = torch.zeros(J, dtype=torch.int64, device=dev)
+        got = sw.sw_extend_kernel(q, qlen, t, tlen, h0, w, p, cells=cells,
+                                  rows=n_rows)
         plain_ms, want = wall_ms(
             lambda: sw.sw_extend_plain(q, qlen, t, tlen, h0, w, p))
         err = max_abs_err(got, want)
         ms = cuda_ms(lambda: sw.sw_extend_kernel(q, qlen, t, tlen, h0, w,
                                                  p))
-        n_cells = int(cells.sum())
+        n_cells, warp_rows = int(cells.sum()), int(n_rows.sum())
         nbytes = 4 * (q.numel() + t.numel() + 3 * J + 6 * J)
         b_ms, b_by = bound(nbytes, n_cells * SW_OPS_PER_CELL, rates["int32"])
         log(f"[kernels] sw_extend J={J} QP={QP} TP={TP} w={w}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.1f} ms, cells {n_cells}, "
             f"bound {b_ms:.4f} ms ({b_by}), equal: {err == 0}")
+        # the kernel's own instruction stream: every row a warp runs costs
+        # the row loop's SASS instructions whatever its band width
+        log(f"[kernels] sw_extend w={w}: {warp_rows} warp rows, "
+            f"{n_cells / max(warp_rows, 1):.1f} cells per row of "
+            f"{32 * K} lane columns (lane use "
+            f"{100 * n_cells / max(32 * K * warp_rows, 1):.1f}%); "
+            + (f"row loop {row_instr} SASS instructions = "
+               f"{row_instr / K:.1f} per column a lane holds, "
+               f"{row_instr * warp_rows / n_cells:.2f} warp instructions "
+               f"per cell; issuing them alone takes "
+               f"{1e3 * row_instr * warp_rows / rates['issue']:.4f} ms"
+               if row_instr else "SASS not read (no cuobjdump)"))
         if err != 0:
             raise AssertionError(f"sw_extend w={w} differs from its plain "
                                  f"version (max abs err {err})")
@@ -324,6 +347,7 @@ def phase_kernels(dev, rates):
             rows["sw_extend"] = dict(max_abs_err=err, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by)
+            kernels_sw_split(q, qlen, t, tlen, h0, w, p, cells, ms)
 
     # --- chain loop: main shape and one escalated shape ---
     l_pac = 2_300_000
@@ -358,6 +382,43 @@ def phase_kernels(dev, rates):
                                       bound_by=b_by)
     rows["pairhmm"] = kernels_pairhmm(dev, rates)
     return rows
+
+
+def sass_row_instructions(K):
+    """SASS instructions of the SW kernel's row loop at K columns a lane
+    (fgdp_tpu_torch.probes.sass), or None where cuobjdump is missing."""
+    from fgdp_tpu_torch.probes import sass
+    try:
+        loops = sass.sw_row_loops()
+    except RuntimeError as e:
+        log(f"[kernels] {e}")
+        return None
+    if loops.get(K) is None:
+        log(f"[kernels] sw_extend K={K}: no row loop found in the SASS")
+        return None
+    n, ops = loops[K]
+    log(f"[kernels] sw_extend K={K} row loop: {n} SASS instructions; "
+        + ", ".join(f"{o} {c}" for o, c in ops.most_common(10)))
+    return n
+
+
+def kernels_sw_split(q, qlen, t, tlen, h0, w, p, cells, ms):
+    """The SW kernel on each query-length class of the bench jobs alone:
+    its share of the jobs, of the DP cells and of the whole batch's
+    kernel time (the measurement that says whether short jobs waste the
+    warp's lanes)."""
+    from fgdp_tpu_torch.ops import sw
+    from fgdp_tpu_torch.probes import cuda_ms
+
+    total = int(cells.sum())
+    for lo, hi in ((1, 20), (21, 99), (100, q.shape[1])):
+        sel = ((qlen >= lo) & (qlen <= hi)).nonzero()[:, 0]
+        sub = [a[sel].contiguous() for a in (q, qlen, t, tlen, h0)]
+        t_ms = cuda_ms(lambda: sw.sw_extend_kernel(*sub, w, p))
+        log(f"[kernels] sw_extend qlen {lo}-{hi} alone: "
+            f"{100 * len(sel) / len(qlen):.1f}% of jobs, "
+            f"{100 * int(cells[sel].sum()) / total:.1f}% of cells, "
+            f"{t_ms:.3f} ms = {100 * t_ms / ms:.1f}% of the batch's time")
 
 
 def kernels_pairhmm(dev, rates):
@@ -608,10 +669,15 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     torch.cuda.reset_peak_memory_stats()
     fin0 = PROF.acc.get(WORKER_SAM, 0.0)
     kernels.reset_launches()
-    t0 = time.time()
-    n = stream_mem(aligner, cli.read_batches([fq], batch), lines.append)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
+    kernels.TIMED["sw_extend"] = []
+    try:
+        t0 = time.time()
+        n = stream_mem(aligner, cli.read_batches([fq], batch), lines.append)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        sw_ms = sum(s.elapsed_time(e) for s, e in kernels.TIMED["sw_extend"])
+    finally:
+        kernels.TIMED.pop("sw_extend", None)
     launches = {k: kernels.LAUNCHES[k] for k in MEM_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     n_batches = -(-n // batch)
@@ -629,6 +695,9 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
         f"{sum(Unresolved.has(s) for _, s in reads)} still overflowed after "
         f"the last rung; launches {launches}, of which in rungs "
         f"{esc.launches}")
+    log(f"[scale] sw_extend (P1) on the mem path: {launches['sw_extend']} "
+        f"launches, {sw_ms:.3f} ms of kernel time (CUDA events around each "
+        f"launch) = {100 * sw_ms / (1e3 * wall):.3f}% of mem's wall")
     log(f"[scale] peak device memory {peak / 2**30:.2f} GiB")
 
     # placement accuracy against the simulated truth
@@ -830,7 +899,7 @@ def phase_probes(dev, lanes):
     grows = gather.measure(tbl, log=log)
     launches = {k: kernels.LAUNCHES[k] for k in ("vpu_ceiling",
                                                  "gather_rows")}
-    rates = {}
+    rates = dict(lanes)
     for kind in ("fp32", "int32"):
         rates[kind] = max(lanes[kind], best[kind])
         log(f"[probes] best {kind} issue rate {best[kind] / 1e12:.3f} T/s ="

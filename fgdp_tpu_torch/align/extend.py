@@ -163,8 +163,9 @@ def extend_chains(cb: ChainBatch, codes, lens, dref: DeviceReference,
         return res, w_used
 
     def sorted_lanes(qn):
-        """Lanes in ascending extension-length order (neighbouring SW
-        threads then end close together) and the inverse permutation."""
+        """Lanes in ascending extension-length order (the SW kernel takes
+        them from the last, the longest first) and the inverse
+        permutation."""
         perm = torch.sort(qn, stable=True).indices
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(J, device=dev)

@@ -43,6 +43,29 @@ struct WarpLanes {
     return v;
 #endif
   }
+  __host__ __device__ int min(int v) const {
+#ifdef __CUDA_ARCH__
+    return __reduce_min_sync(0xffffffffu, v);
+#else
+    return v;
+#endif
+  }
+  // v of lane - d (a lane below d keeps its own v)
+  __host__ __device__ int shfl_up(int v, int d) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_up_sync(0xffffffffu, v, d);
+#else
+    return v;
+#endif
+  }
+  // v of lane src, for every lane
+  __host__ __device__ int shfl(int v, int src) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(0xffffffffu, v, src);
+#else
+    return v;
+#endif
+  }
   __host__ __device__ bool any(bool v) const {
 #ifdef __CUDA_ARCH__
     return __any_sync(0xffffffffu, v);

@@ -14,14 +14,21 @@
 #include "sw_extend.cuh"
 #include "vpu_ceiling.cuh"
 
+// One lane that is the whole warp: every shuffle and reduction returns
+// the lane's own value.
 struct SerialLanes {
   int lane() const { return 0; }
   int width() const { return 1; }
   int max(int v) const { return v; }
+  int min(int v) const { return v; }
+  int shfl_up(int v, int) const { return v; }
+  int shfl(int v, int) const { return v; }
   bool any(bool v) const { return v; }
   void sync() const {}
 };
 
+// The SW logic with one lane holding all QP + 2 band columns (padded to
+// SW_HOST_COLS); returns 1 for a wider query.
 extern "C" int fgdp_sw_extend_host(const int* query, const int* target,
                                    const int* qlen, const int* tlen,
                                    const int* h0, int J, int QP, int TP,
@@ -29,15 +36,15 @@ extern "C" int fgdp_sw_extend_host(const int* query, const int* target,
                                    int e_ins, int zdrop, int end_bonus,
                                    int mat_max, int mat_mis, int mat_amb,
                                    int* out, long long* cells) {
+  if (QP + 2 > SW_HOST_COLS) return 1;
   SWParamsC p{o_del, e_del, o_ins, e_ins, zdrop, end_bonus, mat_max,
               mat_mis, mat_amb};
-  std::vector<int> eh_h(QP + 2), eh_e(QP + 2);
+  SerialLanes L;
   for (int j = 0; j < J; ++j) {
-    int res[6];
-    long long c = sw_extend_job(query + (long long)j * QP,
-                                target + (long long)j * TP, QP, TP, qlen[j],
-                                tlen[j], h0[j], w, p, eh_h.data(),
-                                eh_e.data(), 1, res);
+    int res[SW_OUTS];
+    long long c = sw_extend_job<SW_HOST_COLS>(
+        query + (long long)j * QP, target + (long long)j * TP, QP, TP,
+        qlen[j], tlen[j], h0[j], w, p, L, res);
     for (int k = 0; k < 6; ++k) out[(long long)k * J + j] = res[k];
     if (cells) cells[j] = c;
   }

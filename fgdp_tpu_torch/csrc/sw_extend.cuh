@@ -1,15 +1,23 @@
-// Banded extension Smith-Waterman (bwa ksw_extend2) for ONE job: the
-// per-thread logic of the sw_extend kernel (sw_extend.cu), also built on
-// the host by host_twin.cc for the CPU tests.
+// Banded extension Smith-Waterman (bwa ksw_extend2) for ONE job, its band
+// columns spread over lanes L: the logic of the sw_extend kernel
+// (sw_extend.cu), where L is a warp, also built on the host by
+// host_twin.cc with one serial lane for the CPU tests.
 //
-// A transcription of the row loop of ops/sw.py (sw_extend), itself the
-// contract of the TPU kernel fgdp_tpu/ops/sw_pallas.py (_kernel). Every
-// per-row quantity is computed as that code computes it: beg, end, the
-// row max and its last argmax, max_ie, gscore, max_off, z-drop, and the
-// new beg/end scan over nonzero H/E. The in-row F (gap-in-target)
-// recurrence is a running max carried along the row; the TPU kernel
-// takes it as a log-doubling cummax. The integer max is exact, so both
-// give the same values.
+// A transcription of the row loop of ops/sw.py (sw_extend_plain), itself
+// the contract of the TPU kernel fgdp_tpu/ops/sw_pallas.py (_kernel), row
+// by row as that code computes it over the whole band state: M, E, H and
+// the new E per column, the in-row F (gap-in-target) term as the
+// exclusive prefix max of v[j] = t_ins[j] + j e_ins, the row max and its
+// last argmax, the band state shifted by one column, max_ie, gscore,
+// max_off, z-drop and the new beg/end from the nonzero columns. The
+// arithmetic is int32 and every reduction is a max or a min, so the order
+// in which the lanes combine gives the same values.
+//
+// Layout: lane l holds band columns l*K .. l*K + K - 1 of eh_h/eh_e (the
+// QP + 2 columns of the plain version, padded to K * width; the padding
+// is never in the band and never read into a result) and its query codes,
+// in registers for the whole job. The target is read 'width' codes at a
+// time, one per lane, and broadcast to the warp row by row.
 #pragma once
 
 #include "common.cuh"
@@ -19,113 +27,165 @@ struct SWParamsC {
       mat_amb;
 };
 
-// q: the job's query codes [QP]; t: its target codes [TP]. eh_h/eh_e:
-// the job's band state, QP+2 entries `stride` apart (the kernel lays
-// them out job-minor so a warp's accesses coalesce). out: score, qle,
-// tle, gtle, gscore, max_off. Returns the number of DP cells computed.
+// columns of a lane: K <= SW_MAX_K on the card (32 lanes: QP <= 254),
+// SW_HOST_COLS for the host twin's single lane
+#define SW_MAX_K 8
+#define SW_HOST_COLS 256
+// out: score, qle, tle, gtle, gscore, max_off, and the rows computed
+#define SW_OUTS 7
+
+// q: the job's query codes [QP]; t: its target codes [TP]. Returns the
+// number of DP cells computed (the sum of end - beg over non-empty rows)
+// and fills out[SW_OUTS]; every lane gets the same values.
+template <int K, class Lanes>
 FGDP_HD long long sw_extend_job(const int* q, const int* t, int QP, int TP,
                                 int qlen, int tlen, int h0, int w,
-                                const SWParamsC& p, int* eh_h, int* eh_e,
-                                long long stride, int* out) {
+                                const SWParamsC& p, const Lanes& L,
+                                int* out) {
   const int NEG_INF = -(1 << 30);
+  const int lane = L.lane(), W = L.width();
+  const int j0 = lane * K;   // this lane's first column
   const int oe_del = p.o_del + p.e_del;
   const int oe_ins = p.o_ins + p.e_ins;
-  const int max_ins =
-      fgdp_floordiv(qlen * p.mat_max + p.end_bonus - p.o_ins, p.e_ins) + 1;
-  const int max_del =
-      fgdp_floordiv(qlen * p.mat_max + p.end_bonus - p.o_del, p.e_del) + 1;
-  const int weff = fgdp_min(w, fgdp_max(fgdp_min(max_ins, max_del), 1));
-
-  // first row: eh_h[0]=h0, eh_h[j>=1] = max(h0 - oe_ins - (j-1)e_ins, 0)
-  for (int jr = 0; jr < QP + 2; ++jr) {
-    int h = jr == 0 ? h0
-                    : (jr <= qlen
-                           ? fgdp_max(h0 - oe_ins - (jr - 1) * p.e_ins, 0)
-                           : 0);
-    eh_h[jr * stride] = h;
-    eh_e[jr * stride] = 0;
-  }
-
-  int beg_s = 0, end_s = qlen, mx = h0;
-  int max_i = -1, max_j = -1, max_ie = -1, gscore = -1, max_off = 0;
-  bool dead = qlen <= 0 || tlen <= 0;
+  int mx = h0, max_i = -1, max_j = -1, max_ie = -1, gscore = -1;
+  int max_off = 0, rows = 0;
   long long cells = 0;
-  for (int i = 0; i < TP && i < tlen && !dead; ++i) {
-    const int beg = fgdp_max(beg_s, i - weff);
-    const int end = fgdp_min(fgdp_min(end_s, i + weff + 1), qlen);
-    const int h1_init =
-        beg == 0 ? fgdp_max(h0 - (p.o_del + p.e_del * (i + 1)), 0) : 0;
-    const int tb = t[i];
+  const int T = fgdp_min(TP, tlen);
+  if (qlen > 0 && T > 0) {
+    const int max_ins =
+        fgdp_floordiv(qlen * p.mat_max + p.end_bonus - p.o_ins, p.e_ins) + 1;
+    const int max_del =
+        fgdp_floordiv(qlen * p.mat_max + p.end_bonus - p.o_del, p.e_del) + 1;
+    const int weff = fgdp_min(w, fgdp_max(fgdp_min(max_ins, max_del), 1));
 
-    int G = NEG_INF;   // max over in-band k < j of max(M_k - oe_ins, 0) + k e
-    int h1 = h1_init;  // H(i, j-1)
-    int mrow = 0, mj = -1, first_nz = -1, last_nz = -1;
-    for (int j = beg; j < end; ++j) {
-      const int hprev = eh_h[j * stride];     // H(i-1, j-1)
-      const int e = eh_e[j * stride];         // E(i, j)
-      int qc = q[j];
-      qc = qc < 0 ? 0 : (qc > 4 ? 4 : qc);
-      const int sc = (tb >= 4 || qc >= 4) ? p.mat_amb
-                                          : (qc == tb ? p.mat_max : -p.mat_mis);
-      const int m = hprev != 0 ? hprev + sc : 0;
-      const int f = fgdp_max(G - (j - 1) * p.e_ins, 0);
-      G = fgdp_max(G, fgdp_max(m - oe_ins, 0) + j * p.e_ins);
-      const int h = fgdp_max(fgdp_max(m, e), f);
-      if (h > 0 && h >= mrow) {   // row max, last argmax
-        mrow = h;
-        mj = j;
-      }
-      const int ne = fgdp_max(fgdp_max(m - oe_del, 0), e - p.e_del);
-      eh_h[j * stride] = h1;       // new eh_h[j] = H(i, j-1); [beg] = h1_init
-      eh_e[j * stride] = ne;
-      if (h1 != 0 || ne != 0) {
-        if (first_nz < 0) first_nz = j;
-        last_nz = j;
-      }
-      h1 = h;
-    }
-    int h1_last, nbeg, last;
-    if (end > beg) {
-      cells += end - beg;
-      eh_h[end * stride] = h1;     // H(i, end-1)
-      eh_e[end * stride] = 0;
-      h1_last = h1;
-      nbeg = first_nz >= 0 ? first_nz : end;
-      last = h1 != 0 ? end : (last_nz >= 0 ? last_nz : nbeg - 1);
-    } else {
-      // empty band: only eh_h[beg] and eh_e[end] change
-      if (beg >= 0 && beg < QP + 2) eh_h[beg * stride] = h1_init;
-      const bool end_in = end >= 0 && end < QP + 2;
-      if (end_in) eh_e[end * stride] = 0;
-      h1_last = h1_init;
-      nbeg = end;
-      last = (end_in && (eh_h[end * stride] != 0 || eh_e[end * stride] != 0))
-                 ? end
-                 : end - 1;
+    // first row: eh_h[0] = h0, eh_h[j >= 1] = max(h0 - oe_ins - (j-1)e, 0)
+    int eh[K], ee[K], qc[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = j0 + k;
+      eh[k] = j == 0 ? h0
+                     : (j <= qlen ? fgdp_max(h0 - oe_ins - (j - 1) * p.e_ins, 0)
+                                  : 0);
+      ee[k] = 0;
+      qc[k] = j < QP ? fgdp_min(fgdp_max(q[j], 0), 4) : 4;
     }
 
-    if (end == qlen) {   // ties move max_ie forward
-      if (h1_last >= gscore) max_ie = i;
-      if (h1_last > gscore) gscore = h1_last;
+    int beg_s = 0, end_s = qlen, tcache = 0;
+    for (int i = 0; i < T; ++i) {
+      if (i % W == 0) tcache = i + lane < T ? t[i + lane] : 0;
+      const int tb = L.shfl(tcache, i % W);
+      const int beg = fgdp_max(beg_s, i - weff);
+      const int end = fgdp_min(fgdp_min(end_s, i + weff + 1), qlen);
+      const int h1_init =
+          beg == 0 ? fgdp_max(h0 - (p.o_del + p.e_del * (i + 1)), 0) : 0;
+
+      // M per column, and v's prefix max over the lane's columns before k
+      int m[K], pre[K];
+      int run = NEG_INF;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        const int sc = (tb >= 4 || qc[k] >= 4)
+                           ? p.mat_amb
+                           : (qc[k] == tb ? p.mat_max : -p.mat_mis);
+        m[k] = eh[k] != 0 ? eh[k] + sc : 0;
+        const bool in = j >= beg && j < end;
+        const int v = (in ? fgdp_max(m[k] - oe_ins, 0) : NEG_INF) + j * p.e_ins;
+        pre[k] = run;
+        run = fgdp_max(run, v);
+      }
+      // inclusive scan of the lane totals; the lanes before this one
+      // carry their max in
+      int scan = run;
+      for (int d = 1; d < W; d <<= 1) {
+        const int y = L.shfl_up(scan, d);
+        if (lane >= d) scan = fgdp_max(scan, y);
+      }
+      int carry = L.shfl_up(scan, 1);
+      if (lane == 0) carry = NEG_INF;
+
+      int hk[K], ek[K];
+      int hloc = 0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        const bool in = j >= beg && j < end;
+        const int f =
+            fgdp_max(fgdp_max(carry, pre[k]) - (j - 1) * p.e_ins, 0);
+        hk[k] = in ? fgdp_max(fgdp_max(m[k], ee[k]), f) : 0;
+        ek[k] = in ? fgdp_max(fgdp_max(m[k] - oe_del, 0), ee[k] - p.e_del) : 0;
+        hloc = fgdp_max(hloc, hk[k]);
+      }
+      const int mrow = L.max(hloc);
+      int mj = -1;   // last argmax of the row max
+      if (mrow > 0) {
+        int jloc = -1;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (hk[k] == mrow) jloc = j0 + k;
+        mj = L.max(jloc);
+      }
+
+      // new eh_h[j] = H(i, j-1) for j in (beg, end], eh_h[beg] = h1_init;
+      // new eh_e[j] for j in [beg, end), eh_e[end] = 0
+      const int h_left = L.shfl_up(hk[K - 1], 1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        const int hs = k == 0 ? h_left : hk[k == 0 ? 0 : k - 1];
+        eh[k] = j == beg ? h1_init : (j > beg && j <= end ? hs : eh[k]);
+        ee[k] = j >= beg && j < end ? ek[k] : (j == end ? 0 : ee[k]);
+      }
+      int h1_last = h1_init;
+      if (end > beg) {
+        cells += end - beg;
+        int hl = 0;   // new eh_h[end] = H(i, end-1)
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (j0 + k == end) hl = eh[k];
+        h1_last = L.shfl(hl, end / K);
+      }
+      ++rows;
+
+      if (end == qlen) {   // ties move max_ie forward
+        if (h1_last >= gscore) max_ie = i;
+        if (h1_last > gscore) gscore = h1_last;
+      }
+      const bool died_zero = mrow == 0;
+      const bool improved = !died_zero && mrow > mx;
+      const int di = i - max_i, dj = mj - max_j;
+      const int ddiag = di > dj ? di - dj : dj - di;
+      const int epen = di > dj ? p.e_del : p.e_ins;
+      const bool zdie = !died_zero && !improved && p.zdrop > 0 &&
+                        (mx - mrow - ddiag * epen > p.zdrop);
+      if (improved) {
+        const int off = mj - i < 0 ? i - mj : mj - i;
+        max_off = fgdp_max(max_off, off);
+        mx = mrow;
+        max_i = i;
+        max_j = mj;
+      }
+      if (died_zero || zdie) break;
+
+      // the new band: first nonzero column in [beg, end) (else end), and
+      // the last in [nbeg, end] (else nbeg - 1)
+      int fb = end;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        if ((eh[k] != 0 || ee[k] != 0) && j >= beg && j < end)
+          fb = fgdp_min(fb, j);
+      }
+      const int nbeg = L.min(fb);
+      int lz = nbeg - 1;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int j = j0 + k;
+        if ((eh[k] != 0 || ee[k] != 0) && j >= nbeg && j <= end) lz = j;
+      }
+      beg_s = nbeg;
+      end_s = fgdp_min(L.max(lz) + 2, qlen);
     }
-    const bool died_zero = mrow == 0;
-    const bool improved = !died_zero && mrow > mx;
-    const int di = i - max_i, dj = mj - max_j;
-    const int ddiag = di > dj ? di - dj : dj - di;
-    const int epen = di > dj ? p.e_del : p.e_ins;
-    const bool zdie = !died_zero && !improved && p.zdrop > 0 &&
-                      (mx - mrow - ddiag * epen > p.zdrop);
-    if (improved) {
-      const int off = mj - i < 0 ? i - mj : mj - i;
-      max_off = fgdp_max(max_off, off);
-      mx = mrow;
-      max_i = i;
-      max_j = mj;
-    }
-    const bool alive = !died_zero && !zdie;
-    beg_s = alive ? nbeg : beg;
-    end_s = alive ? fgdp_min(last + 2, qlen) : end;
-    dead = died_zero || zdie;
   }
   out[0] = mx;
   out[1] = max_j + 1;
@@ -133,5 +193,6 @@ FGDP_HD long long sw_extend_job(const int* q, const int* t, int QP, int TP,
   out[3] = max_ie + 1;
   out[4] = gscore;
   out[5] = max_off;
+  out[6] = rows;
   return cells;
 }

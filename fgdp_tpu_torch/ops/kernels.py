@@ -38,7 +38,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # c_void_p (ctypes would cut a Python int to 32 bits otherwise)
 _SIGS = {
     "fgdp_chain_loop": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P],
-    "fgdp_sw_extend": [_P] * 5 + [_I] * 13 + [_P] * 4 + [_P],
+    "fgdp_sw_extend": [_P] * 5 + [_I] * 13 + [_P] * 5 + [_P],
     "fgdp_chain_loop_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
     "fgdp_pairhmm_f32": [_P] * 6 + [_I] * 4 + [_P] + [_P],
@@ -57,7 +57,10 @@ build_log: dict = {}
 LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA event pairs (start, end) around each launch of a kernel, recorded
 # only while a caller has put a list under its name (the smoke run's
-# scale phases sum them into the kernel's time on the main path)
+# scale phases sum them into the kernel's time on the main path). The SW
+# entry point records its pair itself, right around the launch; pairhmm's
+# are recorded from Python, so a host stall between the start event and
+# the launch counts in its sum.
 TIMED: dict = {}
 
 

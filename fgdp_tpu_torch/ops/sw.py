@@ -3,8 +3,9 @@
 The reference runs per-pair banded SW in 8/16-bit AVX512 lanes
 (BandedPairWiseSW, ext/TAL/src/alignment/BSW/bandedSWA.cpp; scalar
 contract scalarBandedSWA :116-234 == bwa ksw_extend2). On the card the
-hand-written kernel csrc/sw_extend.cu runs it, one thread per job (it
-replaces the TPU kernel fgdp_tpu/ops/sw_pallas.py). `sw_extend_plain`
+hand-written kernel csrc/sw_extend.cu runs it, one warp per job with the
+band state in registers (it replaces the TPU kernel
+fgdp_tpu/ops/sw_pallas.py). `sw_extend_plain`
 beside it is the same function as a row loop of torch ops, transcribed
 from the JAX package's ops/sw.sw_extend: the CPU tests run it, and the
 card's smoke run holds the kernel against it.
@@ -24,6 +25,9 @@ import torch
 from . import kernels
 
 NEG_INF = -(1 << 30)
+# the widest query the kernel takes: 32 lanes x SW_MAX_K columns hold the
+# QP + 2 columns of the band state (csrc/sw_extend.cuh)
+MAX_QP = 32 * 8 - 2
 _I32 = torch.int32
 
 
@@ -62,12 +66,16 @@ def sw_extend(query, qlen, target, tlen, h0, w: int, p: SWParams,
 
 
 def sw_extend_kernel(query, qlen, target, tlen, h0, w: int, p: SWParams,
-                     cells=None) -> SWResult:
-    """Launch csrc/sw_extend.cu on CUDA tensors. `cells`, an int64[B]
-    CUDA tensor, receives the DP cells each job computed when given."""
+                     cells=None, rows=None) -> SWResult:
+    """Launch csrc/sw_extend.cu on CUDA tensors. `cells` and `rows`,
+    int64[B] CUDA tensors, receive the DP cells and the target rows each
+    job computed when given."""
     J, QP = query.shape
     TP = target.shape[1]
     dev = query.device
+    if QP > MAX_QP:
+        raise ValueError(f"sw_extend kernel: query width {QP} above "
+                         f"{MAX_QP}, the widest the kernel is built for")
     args = dict(query=query, qlen=qlen, target=target, tlen=tlen, h0=h0)
     query, qlen, target, tlen, h0 = (
         a.to(_I32).contiguous() for a in args.values())
@@ -83,23 +91,33 @@ def sw_extend_kernel(query, qlen, target, tlen, h0, w: int, p: SWParams,
     if J and int(qlen.max()) > QP:
         raise ValueError(f"sw_extend kernel: qlen above the query width "
                          f"{QP}")
-    if cells is not None and (cells.dtype != torch.int64
-                              or cells.shape != (J,)
-                              or cells.device != dev):
-        raise ValueError("sw_extend kernel: cells must be int64[J] on "
-                         "the jobs' device")
-    eh = torch.empty((2, QP + 2, max(J, 1)), dtype=_I32, device=dev)
+    for name, a in (("cells", cells), ("rows", rows)):
+        if a is not None and (a.dtype != torch.int64 or a.shape != (J,)
+                              or a.device != dev):
+            raise ValueError(f"sw_extend kernel: {name} must be int64[J] "
+                             "on the jobs' device")
     out = torch.empty((6, J), dtype=_I32, device=dev)
     lib = kernels.load("sw_extend")
+    timed = kernels.TIMED.get("sw_extend")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        ev = [None, None]
+        if timed is not None:
+            # the C side records the pair around the launch; a first
+            # record here makes torch create the events
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            for e in ev:
+                e.record(stream)
+            timed.append(ev)
         rc = lib.fgdp_sw_extend(
             query.data_ptr(), target.data_ptr(), qlen.data_ptr(),
             tlen.data_ptr(), h0.data_ptr(), J, QP, TP, int(w),
             p.o_del, p.e_del, p.o_ins, p.e_ins, p.zdrop, p.end_bonus,
-            p.mat_max, p.mat_mis, p.mat_amb, eh[0].data_ptr(),
-            eh[1].data_ptr(), out.data_ptr(),
-            cells.data_ptr() if cells is not None else None, stream)
+            p.mat_max, p.mat_mis, p.mat_amb, out.data_ptr(),
+            cells.data_ptr() if cells is not None else None,
+            rows.data_ptr() if rows is not None else None,
+            *(e.cuda_event if e is not None else None for e in ev),
+            stream.cuda_stream)
     kernels.check(rc, "sw_extend")
     kernels.LAUNCHES["sw_extend"] += 1
     return SWResult(*out.unbind(0))

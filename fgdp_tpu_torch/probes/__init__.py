@@ -19,7 +19,10 @@ FP32_LANES = 128
 INT32_LANES = 64
 # operations per unit of work of the port's kernels, counted from their
 # sources; the bounds divide them by the issue rates
-SW_OPS_PER_CELL = 20      # int32 per DP cell (csrc/sw_extend.cuh)
+# int32 per DP cell of the recurrence as ksw_extend2 computes one cell
+# (score, M, E, F, H, the row max): the work the SW bound counts, not the
+# band masks and lanes the kernel (csrc/sw_extend.cuh) spends more on
+SW_OPS_PER_CELL = 20
 CHAIN_OPS_PER_SLOT = 6    # per seed step and chain slot (chain_loop.cuh)
 # float32 per PairHMM cell (pairhmm.cuh): 5 for M, 3 for X, 1 for u, 6
 # compares and selects of the match prior, and 2 per doubling of the scan

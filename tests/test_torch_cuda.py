@@ -71,6 +71,42 @@ SW_CASES = {
 }
 
 
+# query lengths at the kernel's lane boundaries (a warp's lanes hold K
+# band columns each, K = ceil((QP + 2) / 32)), at the ladder's, the main
+# path's and the widest query width the kernel takes
+SW_EDGE_QLENS = (0, 1, 31, 32, 33, 63, 64)
+SW_EDGE_QPS = (100, 151, 254)
+SW_EDGE_WS = (3, 10, 100, 200)
+
+
+def sw_edge_jobs(seed, QP, TP=368, copies=3):
+    """`copies` jobs of each query length in SW_EDGE_QLENS and QP: targets
+    copy the query with 3% substitutions (so bands run to the query's
+    end) and go on at random, a few N bases, target lengths up to 220
+    past the query."""
+    rng = np.random.default_rng(seed)
+    qlen = np.repeat(np.array(SW_EDGE_QLENS + (QP,), np.int32), copies)
+    n = len(qlen)
+    qs = rng.integers(0, 4, (n, QP)).astype(np.int32)
+    ts = rng.integers(0, 4, (n, TP)).astype(np.int32)
+    ts[:, :QP] = np.where(rng.random((n, QP)) < 0.03,
+                          rng.integers(0, 4, (n, QP)), qs)
+    qs[rng.random((n, QP)) < 0.01] = 4
+    tlen = np.minimum(qlen + rng.integers(0, 221, n), TP).astype(np.int32)
+    h0 = rng.integers(1, 80, n).astype(np.int32)
+    return qs, qlen, ts, tlen, h0
+
+
+def sw_retry_jobs(seed, keep=(30, 77, 199)):
+    """A band-retry call of 200 jobs: all but those in `keep` (query
+    lengths 1, 33 and 151) have qlen = tlen = 0."""
+    qs, qlen, ts, tlen, h0 = sw_edge_jobs(seed, 151, copies=25)
+    live = np.zeros(len(qlen), bool)
+    live[list(keep)] = True
+    return (qs, np.where(live, qlen, 0).astype(np.int32), ts,
+            np.where(live, tlen, 0).astype(np.int32), h0)
+
+
 def sw_params(mod, end_bonus):
     """`mod.SWParams` (the port's or the JAX package's) at the default
     scoring."""
@@ -249,6 +285,57 @@ def test_sw_kernel_equals_plain(dev, case):
     want = sw.sw_extend_plain(*args, c["w"], p)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _sw_on_card_equals_plain(dev, jobs, w):
+    args = [torch.as_tensor(a, device=dev) for a in jobs]
+    p = sw_params(sw, OPT.pen_clip5)
+    n0 = kernels.LAUNCHES["sw_extend"]
+    cells = torch.zeros(len(jobs[1]), dtype=torch.int64, device=dev)
+    got = sw.sw_extend_kernel(*args, w, p, cells=cells)
+    assert kernels.LAUNCHES["sw_extend"] == n0 + 1
+    want = sw.sw_extend_plain(*args, w, p)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return cells
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", SW_EDGE_WS)
+@pytest.mark.parametrize("QP", SW_EDGE_QPS)
+def test_sw_kernel_at_lane_boundaries(dev, QP, w):
+    cells = _sw_on_card_equals_plain(dev, sw_edge_jobs(QP + w, QP), w)
+    assert int(cells.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sw_kernel_on_a_mostly_empty_batch(dev):
+    jobs = sw_retry_jobs(12)
+    cells = _sw_on_card_equals_plain(dev, jobs, 2 * OPT.w)
+    empty = torch.as_tensor(jobs[1] == 0, device=dev)
+    assert int(cells[empty].abs().sum()) == 0 and int(cells.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sw_kernel_times_each_launch_when_asked(dev):
+    kernels.TIMED["sw_extend"] = []
+    try:
+        _sw_on_card_equals_plain(dev, sw_edge_jobs(14, 151), OPT.w)
+        pairs = kernels.TIMED["sw_extend"]
+    finally:
+        kernels.TIMED.pop("sw_extend", None)
+    torch.cuda.synchronize()
+    assert len(pairs) == 1 and pairs[0][0].elapsed_time(pairs[0][1]) > 0
+
+
+@pytest.mark.cuda
+def test_sw_kernel_refuses_query_wider_than_built(dev):
+    jobs = sw_edge_jobs(13, sw.MAX_QP + 1, copies=1)
+    args = [torch.as_tensor(a, device=dev) for a in jobs]
+    n0 = kernels.LAUNCHES["sw_extend"]
+    with pytest.raises(ValueError, match="widest"):
+        sw.sw_extend(*args, OPT.w, sw_params(sw, OPT.pen_clip5))
+    assert kernels.LAUNCHES["sw_extend"] == n0
 
 
 @pytest.mark.cuda

@@ -163,6 +163,41 @@ def test_gather_counts():
     assert gather.row_bytes(10) == 10 * 128 * 4 * 2 + 40
 
 
+SASS = """
+        code for sm_90a
+                Function : _Z16sw_extend_kernelILi5EEvPKi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;       /* 0x00000a00ff017b82 */
+                                                                /* 0x000fe40000000800 */
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0020*/                   VIADDMNMX R3, R2, R4, R3, !PT ;
+        /*0030*/                   NOP ;
+        /*0040*/                   SHFL.UP PT, R5, R3, 0x1, RZ ;
+        /*0050*/              @!P0 BRA 0x20 ;
+        /*0060*/                   IMAD.MOV.U32 R6, RZ, RZ, R2 ;
+        /*0070*/               @P1 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   WARPSYNC.COLLECTIVE R7, 0xc0 ;
+        /*00a0*/                   SHFL.UP P6, R5, R3, R8, R9 ;
+        /*00b0*/                   BRA 0x0 ;
+.L_x_9:
+        /*00c0*/                   BRA `(.L_x_9) ;
+"""
+
+
+def test_sass_outer_loop_is_the_largest_backward_span():
+    from fgdp_tpu_torch.probes import sass
+
+    funcs, labels = sass.parse(SASS)
+    name = "_Z16sw_extend_kernelILi5EEvPKi"
+    assert list(funcs) == [name] and len(funcs[name]) == 13
+    assert labels[name] == {".L_x_9": 0xc0}
+    n, ops = sass.outer_loop(funcs[name], labels[name])
+    # 0x10 .. 0x70 without the NOP; the slow path after EXIT is no loop
+    assert n == 6 and ops["BRA"] == 2 and ops["VIADDMNMX"] == 1
+    assert sass.opcode("@!P0 SHFL.UP PT, R5, R3, 0x1, RZ") == "SHFL"
+    assert sass.outer_loop(funcs[name][:3], {}) is None
+
+
 def test_probe_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch on CUDA tensors or raise before any
     build."""

@@ -18,9 +18,11 @@ from fgdp_tpu.ops.sw_pallas import sw_extend_pallas
 from fgdp_tpu_torch.ops import kernels
 from fgdp_tpu_torch.ops import sw
 
+from test_torch_cuda import OPT, SW_EDGE_QPS, SW_EDGE_WS, sw_edge_jobs
 from test_torch_cuda import SW_CASES as CASES
 from test_torch_cuda import sw_pairs as _pairs
 from test_torch_cuda import sw_params as _params
+from test_torch_cuda import sw_retry_jobs
 from test_torch_seeding import one_torch_thread  # noqa: F401
 
 
@@ -69,15 +71,47 @@ def twin_sw(lib, qs, qlen, ts, tlen, h0, w, p):
     return out, cells
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_logic_equals_plain(twin, case):
-    c = CASES[case]
-    qs, qlen, ts, tlen, h0 = _pairs(*c["args"])
-    p = _params(sw, c["bonus"])
-    out, cells = twin_sw(twin, qs, qlen, ts, tlen, h0, c["w"], p)
+def _twin_equals_plain(lib, qs, qlen, ts, tlen, h0, w, p):
+    out, cells = twin_sw(lib, qs, qlen, ts, tlen, h0, w, p)
     got = sw.sw_extend_plain(*(torch.as_tensor(x) for x in
-                               (qs, qlen, ts, tlen, h0)), c["w"], p)
+                               (qs, qlen, ts, tlen, h0)), w, p)
     for i, v in enumerate(got):
         np.testing.assert_array_equal(out[i], v.numpy(),
                                       err_msg=sw.SWResult._fields[i])
     assert (cells >= 0).all() and cells.sum() > 0
+    return cells
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_logic_equals_plain(twin, case):
+    c = CASES[case]
+    _twin_equals_plain(twin, *_pairs(*c["args"]), c["w"],
+                       _params(sw, c["bonus"]))
+
+
+# the card's lane-boundary shapes (tests/test_torch_cuda.py), here with
+# the twin's single lane holding every column
+@pytest.mark.parametrize("w", SW_EDGE_WS)
+@pytest.mark.parametrize("QP", SW_EDGE_QPS)
+def test_kernel_logic_at_edge_shapes(twin, QP, w):
+    _twin_equals_plain(twin, *sw_edge_jobs(QP + w, QP), w,
+                       _params(sw, OPT.pen_clip5))
+
+
+def test_kernel_logic_on_a_mostly_empty_batch(twin):
+    jobs = sw_retry_jobs(12)
+    cells = _twin_equals_plain(twin, *jobs, 2 * OPT.w,
+                               _params(sw, OPT.pen_clip5))
+    assert (cells[jobs[1] == 0] == 0).all()
+
+
+def test_twin_refuses_query_wider_than_its_columns(twin):
+    qs, qlen, ts, tlen, h0 = sw_edge_jobs(13, 255, copies=1)
+    out = np.zeros((6, len(qlen)), np.int32)
+    arr = [np.ascontiguousarray(x, np.int32) for x in (qs, ts, qlen, tlen,
+                                                       h0)]
+    p = _params(sw, OPT.pen_clip5)
+    assert twin.fgdp_sw_extend_host(
+        *(a.ctypes.data for a in arr), len(qlen), 255, ts.shape[1], 100,
+        p.o_del, p.e_del, p.o_ins, p.e_ins, p.zdrop, p.end_bonus, p.mat_max,
+        p.mat_mis, p.mat_amb, out.ctypes.data, None) == 1
