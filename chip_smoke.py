@@ -365,16 +365,18 @@ def phase_kernels(dev, rates):
             *args, l_pac, C, opt.w, opt.max_chain_gap))
         keys = sorted(want)
         err = max_abs_err([got[k] for k in keys], [want[k] for k in keys])
-        ms = cuda_ms(run)
+        ms = timed_ms("chain_loop", run)
         valid = cols[4]
         t_last = np.where(valid.any(1), P - np.argmax(valid[:, ::-1], 1), 0)
         steps = int(t_last.sum())
+        longest = int(valid.sum(1).max())
         nbytes = B * P + 4 * 4 * steps + B + \
             4 * (B * C * len(chain.LOOP_FIELDS) + B + B * P) + B
         b_ms, b_by = bound(nbytes, steps * C * CHAIN_OPS_PER_SLOT,
                            rates["int32"])
-        log(f"[kernels] chain_loop B={B} P={P} C={C}: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms, seed steps {steps}, "
+        log(f"[kernels] chain_loop B={B} P={P} C={C}: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.1f} ms, seed steps {steps}, longest read "
+            f"{longest} valid steps = {1e3 * ms / longest:.3f} us per step, "
             f"bound {b_ms:.5f} ms ({b_by}), equal: {err == 0}")
         if err != 0:
             raise AssertionError(f"chain_loop P={P} C={C} differs from its "
@@ -632,6 +634,59 @@ class EscCounter:
         aligner._esc_exec = spy
 
 
+class ChainLaunches:
+    """P2's launches on a main-path run: the kernel time of each from the
+    events its C entry point records around the launch, its (B, P, C)
+    and its longest read's valid seed steps (counted on the card, read
+    after the run)."""
+
+    def __enter__(self):
+        from fgdp_tpu_torch.align import chain
+        from fgdp_tpu_torch.ops import kernels
+        self.chain, self.kernels = chain, kernels
+        self.inner = inner = chain.chain_loop_kernel
+        self.shapes = []
+
+        def spy(qbeg, rbeg, slen, rid, valid, overflow, l_pac, C, *a):
+            out = inner(qbeg, rbeg, slen, rid, valid, overflow, l_pac, C,
+                        *a)
+            steps = valid.sum(1).max() if valid.numel() else valid.sum()
+            self.shapes.append((tuple(valid.shape) + (C,), steps))
+            return out
+
+        chain.chain_loop_kernel = spy
+        kernels.TIMED["chain_loop"] = []
+        return self
+
+    def __exit__(self, *exc):
+        self.chain.chain_loop_kernel = self.inner
+        self.launch_ms = [s.elapsed_time(e) for s, e in
+                          self.kernels.TIMED.pop("chain_loop", [])]
+        self.steps = [int(st) for _, st in self.shapes]
+
+    def report(self, tag, wall):
+        """Log the launches, their summed kernel ms and share of `wall`
+        seconds, and the launches by shape; returns the summed ms."""
+        total = sum(self.launch_ms)
+        log(f"[{tag}] chain_loop (P2) on the path: {len(self.launch_ms)} "
+            f"launches, {total:.3f} ms of kernel time (CUDA events its C "
+            f"entry point records around each launch) = "
+            f"{100 * total / (1e3 * wall):.4f}% of the wall")
+        hist = {}
+        for (shape, _), st, ms in zip(self.shapes, self.steps,
+                                      self.launch_ms):
+            h = hist.setdefault(shape, dict(n=0, ms=0.0, steps=0))
+            h["n"] += 1
+            h["ms"] += ms
+            h["steps"] += st
+        for (B, P, C), h in sorted(hist.items()):
+            log(f"[{tag}] chain_loop B={B} P={P} C={C}: {h['n']} launches, "
+                f"{h['ms']:.3f} ms, longest read's valid steps summed "
+                f"{h['steps']} = {1e3 * h['ms'] / max(h['steps'], 1):.3f} "
+                f"us per step")
+        return total
+
+
 class Unresolved:
     """Reads whose overflow flag is still set after the escalation ladder
     (their alignments are those of the widest caps, cut short), by
@@ -727,10 +782,12 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     kernels.reset_launches()
     kernels.TIMED["sw_extend"] = []
     try:
-        t0 = time.time()
-        n = stream_mem(aligner, cli.read_batches([fq], batch), lines.append)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        with ChainLaunches() as p2:
+            t0 = time.time()
+            n = stream_mem(aligner, cli.read_batches([fq], batch),
+                           lines.append)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
         sw_ms = sum(s.elapsed_time(e) for s, e in kernels.TIMED["sw_extend"])
     finally:
         kernels.TIMED.pop("sw_extend", None)
@@ -754,6 +811,7 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     log(f"[scale] sw_extend (P1) on the mem path: {launches['sw_extend']} "
         f"launches, {sw_ms:.3f} ms of kernel time (CUDA events around each "
         f"launch) = {100 * sw_ms / (1e3 * wall):.3f}% of mem's wall")
+    p2.report("scale", wall)
     log(f"[scale] peak device memory {peak / 2**30:.2f} GiB")
 
     # placement accuracy against the simulated truth
@@ -1174,16 +1232,18 @@ def phase_pipeline_scale(dev, tmp, ctx, batch, n_dups):
     out = os.path.join(tmp, "pipeline.bam")
     kernels.reset_launches()
     p0 = {k: PROF.acc.get(k, 0.0) for k in ("POOL_WAIT", "SORT_FINISH")}
-    t0 = time.time()
-    n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], fq, "-O", out,
-                              "-t", str(workers), "-b", str(batch)])
-    wall = time.time() - t0
+    with ChainLaunches() as p2:
+        t0 = time.time()
+        n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], fq, "-O", out,
+                                  "-t", str(workers), "-b", str(batch)])
+        wall = time.time() - t0
     launches = {k: kernels.LAUNCHES[k] for k in MEM_KERNELS}
     waits = {k: round(PROF.acc.get(k, 0.0) - p0[k], 2) for k in p0}
     log(f"[pipeline_scale] {n} reads -> {nrec} records, {ndup} duplicates "
         f"in {wall:.2f} s = {n / wall:.1f} reads/s end to end ({workers} "
         f"finalize workers, batch {batch}); launches {launches}; s "
         f"{json.dumps(waits)}")
+    p2.report("pipeline_scale", wall)
 
     # the mem SAM of the same reads: the scale phase's lines, and the
     # planted copies aligned with the ids they have in the stream

@@ -179,13 +179,24 @@ def chain_loop_kernel(qbeg, rbeg, slen, rid, valid, overflow, l_pac: int,
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
     chain_of = torch.empty((B, P), dtype=_I32, device=dev)
     lib = kernels.load("chain_loop")
+    timed = kernels.TIMED.get("chain_loop")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(dev)
+        ev = [None, None]
+        if timed is not None:
+            # the C side records the pair around the launch; a first
+            # record here makes torch create the events
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            for e in ev:
+                e.record(stream)
+            timed.append(ev)
         rc = lib.fgdp_chain_loop(
             ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(),
             ins[3].data_ptr(), vb.data_ptr(), ob.data_ptr(), B, P, C,
             int(l_pac), int(w), int(max_chain_gap), tbl.data_ptr(),
-            n.data_ptr(), ovf.data_ptr(), chain_of.data_ptr(), stream)
+            n.data_ptr(), ovf.data_ptr(), chain_of.data_ptr(),
+            *(e.cuda_event if e is not None else None for e in ev),
+            stream.cuda_stream)
     kernels.check(rc, "chain_loop")
     kernels.LAUNCHES["chain_loop"] += 1
     out = dict(zip(LOOP_FIELDS, tbl.unbind(0)))

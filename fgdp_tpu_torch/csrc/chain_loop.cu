@@ -39,7 +39,9 @@ __global__ void chain_loop_kernel(ChainArgs a) {
 
 // qbeg/rbeg/slen/rid int32[B, P], valid bool[B, P], ovf_in bool[B] ->
 // out int32[10, B, C] (pos, crid, fq, fr, lq, lr, ll, ns, wq, wr),
-// n_out int32[B], ovf_out bool[B], chain_of int32[B, P]. Launches on
+// n_out int32[B], ovf_out bool[B], chain_of int32[B, P]. ev_start/ev_end
+// are cudaEvent_t or null, recorded on `stream` just before and just
+// after the launch (no host time falls between them). Launches on
 // `stream` and returns cudaGetLastError().
 extern "C" int fgdp_chain_loop(const int* qbeg, const int* rbeg,
                                const int* slen, const int* rid,
@@ -47,19 +49,23 @@ extern "C" int fgdp_chain_loop(const int* qbeg, const int* rbeg,
                                const unsigned char* ovf_in, int B, int P,
                                int C, int l_pac, int w, int max_chain_gap,
                                int* out, int* n_out, unsigned char* ovf_out,
-                               int* chain_of, void* stream) {
+                               int* chain_of, void* ev_start, void* ev_end,
+                               void* stream) {
   ChainArgs a{qbeg, rbeg, slen, rid, valid, ovf_in, B, P, C, l_pac, w,
               max_chain_gap, out, n_out, ovf_out, chain_of};
-  if (B > 0) {
-    const size_t shmem = (size_t)kWarps * CH_NFIELDS * C * sizeof(int);
-    if (shmem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          chain_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)shmem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    const int blocks = (B + kWarps - 1) / kWarps;
-    chain_loop_kernel<<<blocks, kWarps * 32, shmem, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t shmem = (size_t)kWarps * CH_NFIELDS * C * sizeof(int);
+  if (shmem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        chain_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shmem);
+    if (e != cudaSuccess) return (int)e;
   }
+  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  if (B > 0) {
+    const int blocks = (B + kWarps - 1) / kWarps;
+    chain_loop_kernel<<<blocks, kWarps * 32, shmem, s>>>(a);
+  }
+  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
   return (int)cudaGetLastError();
 }

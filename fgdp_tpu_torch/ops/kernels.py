@@ -38,7 +38,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point: every pointer and the stream as
 # c_void_p (ctypes would cut a Python int to 32 bits otherwise)
 _SIGS = {
-    "fgdp_chain_loop": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P],
+    "fgdp_chain_loop": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P] * 2 + [_P],
     "fgdp_sw_extend": [_P] * 5 + [_I] * 13 + [_P] * 5 + [_P],
     "fgdp_chain_loop_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
@@ -61,8 +61,9 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA event pairs (start, end) around each launch of a kernel, recorded
 # only while a caller has put a list under its name (the smoke run's
 # scale phases sum them into the kernel's time on the main path). The C
-# entry points of SW and PairHMM record the pair themselves, right around
-# the launch, so no host time falls between the two events.
+# entry points of SW, the chain loop and PairHMM record the pair
+# themselves, right around the launch, so no host time falls between the
+# two events.
 TIMED: dict = {}
 
 
