@@ -271,7 +271,8 @@ def phase_card():
         f"{lanes['mhz']} MHz: FP32 {lanes['fp32'] / 1e12:.2f} T/s, INT32 "
         f"{lanes['int32'] / 1e12:.2f} T/s (an FMA counted once), "
         f"{issue / 1e12:.3f} T warp instructions/s")
-    return name, dict(fp32=lanes["fp32"], int32=lanes["int32"], issue=issue)
+    return name, dict(fp32=lanes["fp32"], int32=lanes["int32"], issue=issue,
+                      mhz=lanes["mhz"])
 
 
 def phase_build():
@@ -296,11 +297,9 @@ def bound(nbytes, ops, rate):
 def phase_kernels(dev, rates):
     """Each kernel against its plain version at main-path shapes."""
     import torch
-    from fgdp_tpu_torch.align import chain
     from fgdp_tpu_torch.config import AlignConfig, BatchShapes
     from fgdp_tpu_torch.ops import sw
-    from fgdp_tpu_torch.probes import (CHAIN_OPS_PER_SLOT, SW_OPS_PER_CELL,
-                                       cuda_ms, wall_ms)
+    from fgdp_tpu_torch.probes import SW_OPS_PER_CELL, cuda_ms, wall_ms
 
     opt = AlignConfig()
     shp = BatchShapes(batch_reads=4096)
@@ -352,19 +351,68 @@ def phase_kernels(dev, rates):
                                      bound_by=b_by)
             kernels_sw_split(q, qlen, t, tlen, h0, w, p, cells, ms)
 
-    # --- chain loop: main shape and one escalated shape ---
-    l_pac = 2_300_000
-    for B, P, C in ((shp.batch_reads, shp.max_seeds, shp.max_chains),
-                    (1024, 1024, 128)):
-        cols = chain_inputs(5 + P, B, P, l_pac)
+    rows["chain_loop"] = kernels_chain(dev, rates)
+    rows["pairhmm"] = kernels_pairhmm(dev, rates)
+    return rows
+
+
+# P2's cases beyond the register path's lane and chunk edges: the bench
+# shape, an escalated one, the ladder's widest and one on the wide path
+# (B, P, C), on chain_inputs' main-path-shaped seeds
+CHAIN_CASES = (("bench", (4096, 256, 64)), ("escalated", (1024, 1024, 128)),
+               ("widest", (1024, 2048, 256)), ("wide", (1024, 1024, 320)))
+CHAIN_EDGE_CS = (1, 31, 32, 33, 64, 256)
+CHAIN_EDGE_PS = (1, 31, 32, 33, 100)
+
+
+def kernels_chain(dev, rates):
+    """P2 against its plain version, tensor for tensor (table, n, ovf,
+    chain_of): at the register path's lane and chunk edges
+    (tests/test_torch_cuda.py's chain_edge_seeds) and at CHAIN_CASES.
+    Kernel ms from the events the C entry point records around each
+    launch; ms per step of the longest read; two bounds: the bytes (and
+    operations) one, and the serial one, the longest read's valid steps
+    times one step's latency on an idle SM (the slope of a lone read's
+    kernel time from 1,024 to 2,048 valid steps). Returns the bench
+    shape's row."""
+    import torch
+    from fgdp_tpu_torch.align import chain
+    from fgdp_tpu_torch.config import AlignConfig
+    from fgdp_tpu_torch.probes import CHAIN_OPS_PER_SLOT, wall_ms
+
+    opt = AlignConfig()
+
+    def check(cols, C, l_pac):
         args = [torch.as_tensor(a, device=dev) for a in cols]
         run = lambda: chain.chain_loop_kernel(*args, l_pac, C, opt.w,
                                               opt.max_chain_gap)
+        p0 = dict(chain.PATH_LAUNCHES)
         got = run()
+        path = [p for p in p0 if chain.PATH_LAUNCHES[p] > p0[p]]
         plain_ms, want = wall_ms(lambda: chain.chain_loop_plain(
             *args, l_pac, C, opt.w, opt.max_chain_gap))
         keys = sorted(want)
         err = max_abs_err([got[k] for k in keys], [want[k] for k in keys])
+        if err != 0:
+            raise AssertionError(f"chain_loop B={len(cols[0])} P="
+                                 f"{cols[0].shape[1]} C={C} differs from "
+                                 f"its plain version (max abs err {err})")
+        return run, path, plain_ms
+
+    edge = load_file("tests/test_torch_cuda.py").chain_edge_seeds
+    for C in CHAIN_EDGE_CS:
+        for P in CHAIN_EDGE_PS:
+            check(edge(7 * C + P, 12, P, 5000), C, 5000)
+    log(f"[kernels] chain_loop equal to its plain version at C "
+        f"{CHAIN_EDGE_CS} x P {CHAIN_EDGE_PS} (chain_edge_seeds)")
+
+    l_pac = 2_300_000
+    for K in (2, 8):
+        sass_row_instructions("chain_loop", K)
+    row = None
+    for label, (B, P, C) in CHAIN_CASES:
+        cols = chain_inputs(5 + P, B, P, l_pac)
+        run, path, plain_ms = check(cols, C, l_pac)
         ms = timed_ms("chain_loop", run)
         valid = cols[4]
         t_last = np.where(valid.any(1), P - np.argmax(valid[:, ::-1], 1), 0)
@@ -374,28 +422,46 @@ def phase_kernels(dev, rates):
             4 * (B * C * len(chain.LOOP_FIELDS) + B + B * P) + B
         b_ms, b_by = bound(nbytes, steps * C * CHAIN_OPS_PER_SLOT,
                            rates["int32"])
-        log(f"[kernels] chain_loop B={B} P={P} C={C}: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.1f} ms, seed steps {steps}, longest read "
-            f"{longest} valid steps = {1e3 * ms / longest:.3f} us per step, "
-            f"bound {b_ms:.5f} ms ({b_by}), equal: {err == 0}")
-        if err != 0:
-            raise AssertionError(f"chain_loop P={P} C={C} differs from its "
-                                 f"plain version (max abs err {err})")
-        if P == shp.max_seeds:
-            rows["chain_loop"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by)
-    rows["pairhmm"] = kernels_pairhmm(dev, rates)
-    return rows
+        step_us = lone_step_us(dev, C, l_pac, opt)
+        serial = 1e-3 * longest * step_us
+        log(f"[kernels] chain_loop {label} B={B} P={P} C={C}, {path} path: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, seed steps "
+            f"{steps}, longest read {longest} valid steps = "
+            f"{1e3 * ms / longest:.3f} us per step; bound {b_ms:.5f} ms "
+            f"({b_by}); serial bound {serial:.4f} ms ({step_us:.3f} us a "
+            f"step on an idle SM = {step_us * rates['mhz']:.0f} clocks at "
+            f"{rates['mhz']:.0f} MHz); kernel / serial bound "
+            f"{ms / serial:.2f}; equal: True")
+        if label == "bench":
+            row = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
+def lone_step_us(dev, C, l_pac, opt):
+    """One step's latency of P2 on an otherwise idle card: the kernel
+    time of one read whose 1,024 or 2,048 slots are all valid (events of
+    the C entry point), the difference over the 1,024 steps between."""
+    import torch
+    from fgdp_tpu_torch.align import chain
+    ms = []
+    for P in (1024, 2048):
+        cols = list(chain_inputs(77, 1, P, l_pac))
+        cols[4] = np.ones((1, P), bool)
+        args = [torch.as_tensor(a, device=dev) for a in cols]
+        ms.append(timed_ms("chain_loop", lambda: chain.chain_loop_kernel(
+            *args, l_pac, C, opt.w, opt.max_chain_gap), reps=20))
+    return 1e3 * (ms[1] - ms[0]) / 1024
 
 
 def sass_row_instructions(kernel, K):
-    """SASS instructions of `kernel`'s row loop (sw_extend or pairhmm) at
-    K columns a lane (fgdp_tpu_torch.probes.sass), or None where
-    cuobjdump is missing."""
+    """SASS instructions of `kernel`'s row loop (sw_extend or pairhmm; the
+    step loop of chain_loop) at K columns or chain slots a lane
+    (fgdp_tpu_torch.probes.sass), or None where cuobjdump is missing."""
     from fgdp_tpu_torch.probes import sass
     row_loops = dict(sw_extend=sass.sw_row_loops,
-                     pairhmm=sass.pairhmm_row_loops)[kernel]
+                     pairhmm=sass.pairhmm_row_loops,
+                     chain_loop=sass.chain_step_loops)[kernel]
     try:
         loops = row_loops()
     except RuntimeError as e:
@@ -405,8 +471,8 @@ def sass_row_instructions(kernel, K):
         log(f"[kernels] {kernel} K={K}: no row loop found in the SASS")
         return None
     n, ops = loops[K]
-    log(f"[kernels] {kernel} K={K} row loop: {n} SASS instructions = "
-        f"{n / K:.1f} per column a lane holds; "
+    log(f"[kernels] {kernel} K={K} loop: {n} SASS instructions = "
+        f"{n / K:.1f} per register a lane holds; "
         + ", ".join(f"{o} {c}" for o, c in ops.most_common(10)))
     return n
 

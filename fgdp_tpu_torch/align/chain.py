@@ -5,7 +5,8 @@ B-tree chaining (mem_chain_seeds_new, src/bwamem.cpp:1163-1237) and
 chain filter (mem_chain_flt :529, mem_chain_weight :452) over a read
 batch. Seed positions come from one batched SA gather; the chain loop
 runs in the hand-written kernel csrc/chain_loop.cu on the card (it
-replaces the TPU kernel fgdp_tpu/ops/chain_pallas.py), and
+replaces the TPU kernel fgdp_tpu/ops/chain_pallas.py; the chain table in
+registers, or in shared memory above 256 chain slots), and
 `chain_loop_plain` beside it is the same loop as torch ops over all
 reads, transcribed from the JAX package's jnp loop: the CPU tests run
 it, and the card's smoke run holds the kernel against it.
@@ -20,6 +21,7 @@ overflow is flagged per read for the host escalation ladder.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -37,6 +39,12 @@ _I32 = torch.int32
 # chain-table fields the loop returns, in the kernel's output order
 LOOP_FIELDS = ("pos", "crid", "fq", "fr", "lq", "lr", "ll", "ns", "wq",
                "wr")
+# the kernel's two paths, as its C entry point reports the one it took
+# (chosen from C alone, before the launch): the chain table in
+# registers, or in shared memory for more chain slots than the kernel
+# library's fgdp_chain_reg_max_c(); launches of each
+KERNEL_PATHS = ("registers", "wide")
+PATH_LAUNCHES = {p: 0 for p in KERNEL_PATHS}
 
 
 class ChainBatch(NamedTuple):
@@ -180,6 +188,7 @@ def chain_loop_kernel(qbeg, rbeg, slen, rid, valid, overflow, l_pac: int,
     chain_of = torch.empty((B, P), dtype=_I32, device=dev)
     lib = kernels.load("chain_loop")
     timed = kernels.TIMED.get("chain_loop")
+    path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         ev = [None, None]
@@ -195,10 +204,12 @@ def chain_loop_kernel(qbeg, rbeg, slen, rid, valid, overflow, l_pac: int,
             ins[3].data_ptr(), vb.data_ptr(), ob.data_ptr(), B, P, C,
             int(l_pac), int(w), int(max_chain_gap), tbl.data_ptr(),
             n.data_ptr(), ovf.data_ptr(), chain_of.data_ptr(),
+            ctypes.addressof(path),
             *(e.cuda_event if e is not None else None for e in ev),
             stream.cuda_stream)
     kernels.check(rc, "chain_loop")
     kernels.LAUNCHES["chain_loop"] += 1
+    PATH_LAUNCHES[KERNEL_PATHS[path.value]] += 1
     out = dict(zip(LOOP_FIELDS, tbl.unbind(0)))
     out.update(n=n, chain_of=chain_of, ovf=ovf)
     return out

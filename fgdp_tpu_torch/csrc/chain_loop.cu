@@ -6,65 +6,109 @@
 // a new chain), with the wq/wr weights, each seed's chain id and the
 // overflow flag when all C slots are used.
 //
-// Design: one warp per read. The read's chain table (12 fields x C
-// slots) lives in shared memory; slot c belongs to lane c % 32. Seeds
-// stream in from global memory in slot order up to the read's last
-// valid slot. "Largest pos <= rbeg, ties to the latest slot" is two
-// warp max-reductions (over pos, then over the slot index among the
-// ties); the rest of a step is integer work on the chosen slot, done
-// identically by every lane, with lane 0 writing the table. It takes
-// every shape the escalation ladder produces (P up to 2048, C up to 256:
-// 12 KB of shared memory per warp); the TPU kernel's VMEM tile fit has
-// no counterpart.
+// Design: one warp per read, the read's whole chain table in registers
+// (chain_loop.cuh, chain_read_regs): slot c in lane c % 32, register
+// c / 32, K = ceil(C / 32) a template parameter (every K up to CH_MAX_K
+// is instantiated: C <= 256, the widest the escalation ladder makes).
+// Seeds come in 32 slots at a time with coalesced loads, the next chunk
+// in flight; invalid slots are skipped by walking the chunk's ballot
+// word. "Largest pos <= rbeg, ties to the latest slot" is two warp
+// max-reductions, run for step t + 1 while step t decides and corrected
+// by step t's new chain with one compare (a chain's pos never changes
+// after it opens). Slot lo's fields come by shuffle from its owner lane;
+// no __syncwarp and no shared memory on a step's path. Launches whose C
+// is above 32 CH_MAX_K take the wide path, the table in shared memory
+// (chain_read_wide); the C entry point chooses from C before the launch
+// and reports the path.
 //
-// What bounds it: the bytes. Each step is a few dozen integer
-// operations per lane, so the seed columns read (5 words per slot up to
-// the read's last valid slot) and the table and chain ids written set
-// the least time; the serial chain of steps inside a read, each waiting
-// on two shuffle reductions, is what this simple design pays for.
+// What bounds it: the chain of dependent steps inside the longest read.
+// The bytes (the valid flags, 4 words per valid slot, the table and the
+// chain ids) and the issue of a few hundred warp instructions a step
+// over the whole batch take microseconds; a read's steps are serial, so
+// the kernel takes the longest read's valid steps times one step's
+// latency, which this design cuts to the decision's own integer chain
+// (the search, the seed shuffles and the field shuffles run beside it).
 #include <cuda_runtime.h>
 
 #include "chain_loop.cuh"
 
 constexpr int kWarps = 2;   // reads per block
 
-__global__ void chain_loop_kernel(ChainArgs a) {
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32)
+    chain_regs_kernel(ChainArgs a) {
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= a.B) return;   // uniform per warp
+  WarpLanes L;
+  chain_read_regs<K>(a, b, L);
+}
+
+__global__ void chain_wide_kernel(ChainArgs a) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= a.B) return;   // uniform per warp
   WarpLanes L;
-  chain_read(a, b, smem + warp * CH_NFIELDS * a.C, L);
+  chain_read_wide(a, b, smem + warp * CH_NFIELDS * a.C, L);
 }
+
+static void launch_regs(int K, const ChainArgs& a, cudaStream_t s) {
+  static_assert(CH_MAX_K == 8, "instantiate every K up to CH_MAX_K");
+  const int blocks = (a.B + kWarps - 1) / kWarps;
+#define CH_LAUNCH(k)                                          \
+  case k:                                                     \
+    chain_regs_kernel<k><<<blocks, kWarps * 32, 0, s>>>(a);   \
+    break;
+  switch (K) {
+    CH_LAUNCH(1) CH_LAUNCH(2) CH_LAUNCH(3) CH_LAUNCH(4)
+    CH_LAUNCH(5) CH_LAUNCH(6) CH_LAUNCH(7) CH_LAUNCH(8)
+  }
+#undef CH_LAUNCH
+}
+
+// the widest C the register path takes
+extern "C" int fgdp_chain_reg_max_c() { return 32 * CH_MAX_K; }
 
 // qbeg/rbeg/slen/rid int32[B, P], valid bool[B, P], ovf_in bool[B] ->
 // out int32[10, B, C] (pos, crid, fq, fr, lq, lr, ll, ns, wq, wr),
-// n_out int32[B], ovf_out bool[B], chain_of int32[B, P]. ev_start/ev_end
-// are cudaEvent_t or null, recorded on `stream` just before and just
-// after the launch (no host time falls between them). Launches on
-// `stream` and returns cudaGetLastError().
+// n_out int32[B], ovf_out bool[B], chain_of int32[B, P]. *path (host
+// memory) receives the path taken: 0 the register path
+// (C <= fgdp_chain_reg_max_c()), 1 the wide one. ev_start/ev_end are
+// cudaEvent_t or null, recorded on `stream` just before and just after
+// the launch (no host time falls between them). Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int fgdp_chain_loop(const int* qbeg, const int* rbeg,
                                const int* slen, const int* rid,
                                const unsigned char* valid,
                                const unsigned char* ovf_in, int B, int P,
                                int C, int l_pac, int w, int max_chain_gap,
                                int* out, int* n_out, unsigned char* ovf_out,
-                               int* chain_of, void* ev_start, void* ev_end,
-                               void* stream) {
+                               int* chain_of, int* path, void* ev_start,
+                               void* ev_end, void* stream) {
+  if (C < 1 || P < 0) return (int)cudaErrorInvalidValue;
   ChainArgs a{qbeg, rbeg, slen, rid, valid, ovf_in, B, P, C, l_pac, w,
               max_chain_gap, out, n_out, ovf_out, chain_of};
   cudaStream_t s = (cudaStream_t)stream;
+  const int K = (C + 31) / 32;
+  if (K <= CH_MAX_K) {
+    *path = 0;
+    if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+    if (B > 0) launch_regs(K, a, s);
+    if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+    return (int)cudaGetLastError();
+  }
   const size_t shmem = (size_t)kWarps * CH_NFIELDS * C * sizeof(int);
   if (shmem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        chain_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        chain_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)shmem);
     if (e != cudaSuccess) return (int)e;
   }
+  *path = 1;
   if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
   if (B > 0) {
     const int blocks = (B + kWarps - 1) / kWarps;
-    chain_loop_kernel<<<blocks, kWarps * 32, shmem, s>>>(a);
+    chain_wide_kernel<<<blocks, kWarps * 32, shmem, s>>>(a);
   }
   if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
   return (int)cudaGetLastError();

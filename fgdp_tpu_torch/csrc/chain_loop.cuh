@@ -1,6 +1,6 @@
 // Chain-table construction for ONE read: the per-warp logic of the
 // chain_loop kernel (chain_loop.cu), also built on the host by
-// host_twin.cc (with a one-lane "warp") for the CPU tests.
+// host_twin.cc for the CPU tests.
 //
 // A transcription of the jnp chain loop of fgdp_tpu/align/chain.py
 // (chain_seeds body, itself the reference's mem_chain_seeds_new,
@@ -10,6 +10,27 @@
 // latest slot) either contains it (dropped), grows by it, or a new
 // chain opens. Integer arithmetic only, with the same compares in the
 // same order, so the result is bit-equal.
+//
+// Two layouts of the same logic:
+//
+// - chain_read_regs<K>, the main path (C <= 32 CH_MAX_K): the table in
+//   registers, slot c in lane c % 32, register c / 32, K = ceil(C / 32).
+//   The seeds stream in 32 slots at a time, one slot a lane, the next
+//   chunk's loads in flight; the chunk's valid flags become one ballot
+//   word whose set bits are the steps, and a step takes its seed by
+//   shuffle. The search for step t + 1 runs on the table as it stood
+//   before step t, in parallel with step t's decision: a chain's pos is
+//   written only when the chain opens, and a new chain takes slot n, the
+//   highest, so step t's new chain (pos rb_t) corrects the search with
+//   one compare: if rb_t <= rb_{t+1} it is eligible, and if rb_t is at
+//   least the searched maximum it is the latest of the ties. Slot lo's
+//   other fields are read by shuffle from its owner lane, on the
+//   registers before step t's write; if step t wrote slot lo, its values
+//   come straight from step t. Every lane decides alike from the shared
+//   values; the owner lane of the written slot keeps the write. Lane
+//   t % 32 keeps step t's chain id and the warp stores 32 at a time.
+// - chain_read_wide, for C above: the table in shared memory, two warp
+//   reductions a step, lane 0 writing the table.
 #pragma once
 
 #include "common.cuh"
@@ -20,6 +41,9 @@ enum {
   CH_QEND, CH_REND, CH_NFIELDS
 };
 #define CH_NOUT 10   // pos..wr are returned; qend/rend are loop-internal
+
+// widest register path: K <= CH_MAX_K registers a lane, C <= 32 K
+#define CH_MAX_K 8
 
 struct ChainArgs {
   const int* qbeg;            // [B, P]
@@ -35,11 +59,262 @@ struct ChainArgs {
   int* chain_of;              // [B, P]
 };
 
+// ------------------------------------------------------- register path
+
+// The read's seed slots below tl, 32 at a time: lane l holds slot
+// base + l of the chunk being stepped (cur) and of the next one (nxt),
+// whose loads are in flight; `mask` holds the cur slots not yet taken.
+template <class L>
+struct ChainStream {
+  using I = typename L::I;
+  enum { V, QB, RB, LN, RD, NCOL };
+  const ChainArgs& a;
+  const long long row;
+  const int tl;
+  const L& lanes;
+  int base = 0;
+  unsigned mask;
+  I cur[NCOL], nxt[NCOL];
+
+  FGDP_HD ChainStream(const ChainArgs& a_, long long row_, int tl_,
+                      const L& lanes_)
+      : a(a_), row(row_), tl(tl_), lanes(lanes_) {
+    load(0, cur);
+    load(32, nxt);
+    mask = lanes.ballot(cur[V] != 0);
+  }
+
+  FGDP_HD void load(int b0, I (&d)[NCOL]) const {
+    const I t = lanes.lane() + b0;
+    const auto ok = t < tl;
+    d[V] = lanes.load_u8(a.valid + row, t, ok);
+    d[QB] = lanes.load(a.qbeg + row, t, ok, 0);
+    d[RB] = lanes.load(a.rbeg + row, t, ok, 0);
+    d[LN] = lanes.load(a.slen + row, t, ok, 0);
+    d[RD] = lanes.load(a.rid + row, t, ok, 0);
+  }
+
+  // the next valid slot t and its qbeg, rbeg, slen, rid; false past tl
+  FGDP_HD bool next(int& t, int (&s)[4]) {
+    while (mask == 0) {
+      if (base + 32 >= tl) return false;
+      base += 32;
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) cur[c] = nxt[c];
+      load(base + 32, nxt);
+      mask = lanes.ballot(cur[V] != 0);
+    }
+    const int l = fgdp_ctz(mask);
+    mask &= mask - 1;
+    t = base + l;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = lanes.shfl(cur[QB + c], l);
+    return true;
+  }
+};
+
+// Largest pos <= rb among slots below n (-1 if none is larger), the
+// latest slot holding it among those (0 if none), whether any is.
+template <int K, class L>
+FGDP_HD void chain_search(const typename L::I (&pos)[K], int n, int rb,
+                          const L& lanes, int& mp, int& lo, bool& has) {
+  using I = typename L::I;
+  const I lane = lanes.lane();
+  I best = I(-1), any = I(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const auto e = ((lane + 32 * k) < n) & (pos[k] <= rb);
+    best = lanes.sel(e & (best < pos[k]), pos[k], best);
+    any = any | e;
+  }
+  mp = lanes.max(best);
+  has = lanes.ballot(any != 0) != 0;
+  I lc = I(0);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const I c = lane + 32 * k;
+    lc = lanes.sel((c < n) & (pos[k] <= rb) & (pos[k] == mp), c, lc);
+  }
+  lo = lanes.max(lc);
+}
+
+// One read on the register path (K = ceil(C / 32) of its launch).
+template <int K, class L>
+FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
+  using I = typename L::I;
+  const int C = a.C, P = a.P;
+  const long long row = (long long)b * P;
+  const I lane = lanes.lane();
+
+  // each read steps only to its own last valid slot
+  I tl_l = I(0);
+  for (int t0 = 0; t0 < P; t0 += 32) {
+    const I t = lane + t0;
+    tl_l = lanes.sel(lanes.load_u8(a.valid + row, t, t < P) != 0, t + 1,
+                     tl_l);
+  }
+  const int tl = lanes.max(tl_l);
+
+  I st[CH_NFIELDS][K];
+#pragma unroll
+  for (int f = 0; f < CH_NFIELDS; ++f)
+#pragma unroll
+    for (int k = 0; k < K; ++k) st[f][k] = I(0);
+
+  ChainStream<L> seeds(a, row, tl, lanes);
+  int n = 0;
+  bool ovf = a.ovf_in[b] != 0;
+  I cof = I(-1);   // chain ids of step chunk oc, step t in lane t % 32
+  int oc = 0;
+  // the previous step's write, not yet in the registers: the record
+  // `rec` of slot pw (a new chain when `opened`, else an append when pk)
+  bool pk = false, opened = false;
+  int pw = 0, prb = 0;
+  int rec[CH_NFIELDS];
+#pragma unroll
+  for (int f = 0; f < CH_NFIELDS; ++f) rec[f] = 0;
+  // the search for the current step, on the table before the previous
+  // step (the table is empty before the first)
+  int s_mp = -1, s_lo = 0;
+  bool s_has = false;
+
+  int t = 0, sd[4] = {0, 0, 0, 0};
+  bool more = seeds.next(t, sd);
+  while (more) {
+    const int qb = sd[0], rb = sd[1], ln = sd[2], rd = sd[3];
+    while ((t >> 5) != oc) {
+      lanes.store_if(a.chain_of + row, lane + 32 * oc, cof,
+                     lane + 32 * oc < P);
+      cof = I(-1);
+      ++oc;
+    }
+
+    // slot s_lo's fields before the previous step's write, from its
+    // owner lane (pos is not needed)
+    int g[CH_NFIELDS];
+    g[CH_POS] = 0;
+    {
+      const int r = s_lo >> 5, src = s_lo & 31;
+#pragma unroll
+      for (int f = CH_CRID; f < CH_NFIELDS; ++f) {
+        I x = st[f][0];
+#pragma unroll
+        for (int k = 1; k < K; ++k) x = lanes.sel(r == k, st[f][k], x);
+        g[f] = lanes.shfl(x, src);
+      }
+    }
+    // the previous step's write into the registers
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const auto hit = (lane == (pw & 31)) & ((pw >> 5) == k);
+#pragma unroll
+      for (int f = 0; f < CH_NFIELDS; ++f)
+        st[f][k] = lanes.sel(hit & (f <= CH_FR ? opened : pk), rec[f],
+                             st[f][k]);
+    }
+    // the next step, and its search on the table before this step
+    int t2 = 0, sd2[4] = {0, 0, 0, 0};
+    const bool more2 = seeds.next(t2, sd2);
+    int mp2, lo2;
+    bool has2;
+    chain_search<K>(st[CH_POS], n, sd2[1], lanes, mp2, lo2, has2);
+
+    // this step's slot lo: the search's, or the chain the previous step
+    // opened (slot n then, the latest, so it wins a tie); slot lo's
+    // values straight from the previous step where it wrote them
+    const bool new_elig = opened && prb <= rb;
+    const bool has_lo = s_has || new_elig;
+    const int lo = (new_elig && prb >= s_mp) ? pw : s_lo;
+    const bool fresh = pk && lo == pw;
+#pragma unroll
+    for (int f = CH_CRID; f < CH_NFIELDS; ++f)
+      if (f <= CH_FR ? (fresh && opened) : fresh) g[f] = rec[f];
+
+    const bool same_rid = g[CH_CRID] == rd;
+    const bool contained = (qb >= g[CH_FQ]) &&
+                           (qb + ln <= g[CH_LQ] + g[CH_LL]) &&
+                           (rb >= g[CH_FR]) &&
+                           (rb + ln <= g[CH_LR] + g[CH_LL]);
+    const bool diff_strand =
+        ((g[CH_LR] < a.l_pac) || (g[CH_FR] < a.l_pac)) && (rb >= a.l_pac);
+    const int x = qb - g[CH_LQ], y = rb - g[CH_LR];
+    const bool growable = (y >= 0) && (x - y <= a.w) && (y - x <= a.w) &&
+                          (x - g[CH_LL] < a.max_chain_gap) &&
+                          (y - g[CH_LL] < a.max_chain_gap);
+    const bool merged_contained = has_lo && same_rid && contained;
+    const bool appended =
+        has_lo && same_rid && !contained && !diff_strand && growable;
+    const bool new_chain = !(merged_contained || appended);
+    const bool room = n < C;
+    // merged_contained: -1 (dropped)
+    const int cid = appended ? lo : ((new_chain && room) ? n : -1);
+    cof = lanes.sel(lane == (t & 31), cid, cof);
+
+    // this step's write: the whole record of slot lo (appended) or n
+    const int dq = qb >= g[CH_QEND] ? ln : fgdp_max(qb + ln - g[CH_QEND], 0);
+    const int dr = rb >= g[CH_REND] ? ln : fgdp_max(rb + ln - g[CH_REND], 0);
+    rec[CH_POS] = rb;
+    rec[CH_CRID] = rd;
+    rec[CH_FQ] = qb;
+    rec[CH_FR] = rb;
+    rec[CH_LQ] = qb;
+    rec[CH_LR] = rb;
+    rec[CH_LL] = ln;
+    rec[CH_NS] = appended ? g[CH_NS] + 1 : 1;
+    rec[CH_WQ] = appended ? g[CH_WQ] + dq : ln;
+    rec[CH_WR] = appended ? g[CH_WR] + dr : ln;
+    rec[CH_QEND] = appended ? fgdp_max(g[CH_QEND], qb + ln) : qb + ln;
+    rec[CH_REND] = appended ? fgdp_max(g[CH_REND], rb + ln) : rb + ln;
+    opened = new_chain && room;
+    pk = appended || opened;
+    pw = appended ? lo : n;
+    prb = rb;
+    ovf = ovf || (new_chain && !room);
+    n += opened ? 1 : 0;
+
+    s_mp = mp2;
+    s_lo = lo2;
+    s_has = has2;
+    t = t2;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) sd[c] = sd2[c];
+    more = more2;
+  }
+
+  // the last step's write, the last chunks of chain ids, the table
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const auto hit = (lane == (pw & 31)) & ((pw >> 5) == k);
+#pragma unroll
+    for (int f = 0; f < CH_NFIELDS; ++f)
+      st[f][k] = lanes.sel(hit & (f <= CH_FR ? opened : pk), rec[f],
+                           st[f][k]);
+  }
+  for (; 32 * oc < P; ++oc) {
+    lanes.store_if(a.chain_of + row, lane + 32 * oc, cof,
+                   lane + 32 * oc < P);
+    cof = I(-1);
+  }
+  const long long BC = (long long)a.B * C;
+#pragma unroll
+  for (int f = 0; f < CH_NOUT; ++f)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const I c = lane + 32 * k;
+      lanes.store_if(a.out + f * BC + (long long)b * C, c, st[f][k], c < C);
+    }
+  // n and ovf are the same in every lane: one store of one value
+  a.n_out[b] = n;
+  a.ovf_out[b] = ovf ? 1 : 0;
+}
+
+// ----------------------------------------------------------- wide path
+
 // Lanes: lane(), width(), max(v), any(v), sync(). Slots c = lane(),
 // lane()+width(), ... belong to one lane; every lane computes the same
 // decisions from the reduced values, and lane 0 writes the table.
 template <class Lanes>
-FGDP_HD void chain_read(const ChainArgs& a, int b, int* st, Lanes& L) {
+FGDP_HD void chain_read_wide(const ChainArgs& a, int b, int* st, Lanes& L) {
   const int C = a.C, P = a.P;
   const long long rowP = (long long)b * P;
   const int lane = L.lane(), W = L.width();

@@ -23,11 +23,22 @@ FGDP_HD int fgdp_floordiv(int a, int b) {
   return q;
 }
 
+// index of the lowest set bit of x != 0
+FGDP_HD int fgdp_ctz(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __ffs((int)x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
 #ifdef __CUDACC__
 // A warp's 32 lanes, for the kernels' per-job logic (its host twin passes
-// a serial lane instead). Host passes of nvcc see the same declarations,
+// a serial lane, or 32 lanes in lockstep, instead). A lane value (I) is
+// the thread's own int. Host passes of nvcc see the same declarations,
 // but only device code ever instantiates the logic with them.
 struct WarpLanes {
+  using I = int;
   __host__ __device__ int lane() const {
 #ifdef __CUDA_ARCH__
     return threadIdx.x & 31;
@@ -72,6 +83,28 @@ struct WarpLanes {
 #else
     return v;
 #endif
+  }
+  // bit l set where lane l's c holds
+  __host__ __device__ unsigned ballot(bool c) const {
+#ifdef __CUDA_ARCH__
+    return __ballot_sync(0xffffffffu, c);
+#else
+    return c ? 1u : 0u;
+#endif
+  }
+  __host__ __device__ int sel(bool c, int a, int b) const {
+    return c ? a : b;
+  }
+  __host__ __device__ int load(const int* p, int idx, bool ok,
+                               int other) const {
+    return ok ? p[idx] : other;
+  }
+  __host__ __device__ int load_u8(const unsigned char* p, int idx,
+                                  bool ok) const {
+    return ok ? p[idx] : 0;
+  }
+  __host__ __device__ void store_if(int* p, int idx, int v, bool ok) const {
+    if (ok) p[idx] = v;
   }
   __host__ __device__ void sync() const {
 #ifdef __CUDA_ARCH__

@@ -1,9 +1,9 @@
 // Host twin of the CUDA kernels, for the CPU tests only: g++ builds the
 // kernels' own per-job (sw_extend.cuh), per-read (chain_loop.cuh),
 // per-pair (pairhmm.cuh) and per-element (vpu_ceiling.cuh) logic into a
-// plain C library, run with one serial lane (the PairHMM register path
-// with 32 lanes in lockstep), so the logic can be held against the plain
-// PyTorch versions where there is no nvcc. It builds with
+// plain C library, run with one serial lane (the register paths of the
+// chain loop and PairHMM with 32 lanes in lockstep), so the logic can be
+// held against the plain PyTorch versions where there is no nvcc. It builds with
 // -ffp-contract=off, so that no multiply and add fuse into one rounding,
 // as on the card. The port's CPU path never calls it; it runs the plain
 // PyTorch versions.
@@ -11,9 +11,9 @@
 #include <type_traits>
 #include <vector>
 
-// A warp's 32 lanes in lockstep, for the PairHMM register path: a lane
-// value is an array of 32, every operation acts lane by lane, a rotation
-// permutes the array. Declared before the kernels' logic so that its
+// A warp's 32 lanes in lockstep, for the register paths: a lane value is
+// an array of 32, every operation acts lane by lane, a rotation permutes
+// the array, a reduction or a ballot reads all 32. Declared before the kernels' logic so that its
 // operators and hmm_* overloads are the ones the logic finds.
 template <class T>
 struct Lane32 {
@@ -44,7 +44,7 @@ const T& at(const T& a, int) { return a; }
     return r;                                                       \
   }
 LANE_BINOP(+) LANE_BINOP(-) LANE_BINOP(*) LANE_BINOP(&) LANE_BINOP(|)
-LANE_BINOP(==) LANE_BINOP(<) LANE_BINOP(<=) LANE_BINOP(>=)
+LANE_BINOP(==) LANE_BINOP(!=) LANE_BINOP(<) LANE_BINOP(<=) LANE_BINOP(>=)
 #undef LANE_BINOP
 
 #define LANE_FLOP(NAME, OP)                                         \
@@ -95,6 +95,36 @@ struct HostWarp {
     for (int i = 0; i < 32; ++i) p[idx.v[i]] = v.v[i];
   }
   void sync() const {}
+  // the chain loop's register path: int lanes
+  template <class C>
+  I load_u8(const unsigned char* p, const I& idx, const C& ok) const {
+    I r;
+    for (int i = 0; i < 32; ++i) r.v[i] = at(ok, i) ? p[idx.v[i]] : 0;
+    return r;
+  }
+  template <class C>
+  void store_if(int* p, const I& idx, const I& v, const C& ok) const {
+    for (int i = 0; i < 32; ++i)
+      if (at(ok, i)) p[idx.v[i]] = v.v[i];
+  }
+  template <class C, class A, class B>
+  I sel(const C& c, const A& a, const B& b) const {
+    I r;
+    for (int i = 0; i < 32; ++i) r.v[i] = at(c, i) ? at(a, i) : at(b, i);
+    return r;
+  }
+  int shfl(const I& v, int src) const { return v.v[src]; }
+  int max(const I& v) const {
+    int m = v.v[0];
+    for (int i = 1; i < 32; ++i) m = v.v[i] > m ? v.v[i] : m;
+    return m;
+  }
+  template <class T>
+  unsigned ballot(const Lane32<T>& c) const {
+    unsigned m = 0;
+    for (int i = 0; i < 32; ++i) m |= (c.v[i] ? 1u : 0u) << i;
+    return m;
+  }
 };
 
 #include "chain_loop.cuh"
@@ -139,6 +169,16 @@ extern "C" int fgdp_sw_extend_host(const int* query, const int* target,
   return 0;
 }
 
+extern "C" int fgdp_chain_reg_max_c() { return 32 * CH_MAX_K; }
+
+template <int K>
+static void chain_regs_host(const ChainArgs& a) {
+  HostWarp L;
+  for (int b = 0; b < a.B; ++b) chain_read_regs<K>(a, b, L);
+}
+
+// The register path with 32 lockstep lanes, K = ceil(C / 32) as on the
+// card; returns 1 for C outside [1, fgdp_chain_reg_max_c()].
 extern "C" int fgdp_chain_loop_host(const int* qbeg, const int* rbeg,
                                     const int* slen, const int* rid,
                                     const unsigned char* valid,
@@ -146,11 +186,37 @@ extern "C" int fgdp_chain_loop_host(const int* qbeg, const int* rbeg,
                                     int P, int C, int l_pac, int w,
                                     int max_chain_gap, int* out, int* n_out,
                                     unsigned char* ovf_out, int* chain_of) {
+  static_assert(CH_MAX_K == 8, "instantiate every K up to CH_MAX_K");
+  ChainArgs a{qbeg, rbeg, slen, rid, valid, ovf_in, B, P, C, l_pac, w,
+              max_chain_gap, out, n_out, ovf_out, chain_of};
+  if (C < 1) return 1;
+  switch ((C + 31) / 32) {
+    case 1: chain_regs_host<1>(a); return 0;
+    case 2: chain_regs_host<2>(a); return 0;
+    case 3: chain_regs_host<3>(a); return 0;
+    case 4: chain_regs_host<4>(a); return 0;
+    case 5: chain_regs_host<5>(a); return 0;
+    case 6: chain_regs_host<6>(a); return 0;
+    case 7: chain_regs_host<7>(a); return 0;
+    case 8: chain_regs_host<8>(a); return 0;
+  }
+  return 1;
+}
+
+// The wide path with one serial lane over the shared-memory layout.
+extern "C" int fgdp_chain_loop_wide_host(const int* qbeg, const int* rbeg,
+                                         const int* slen, const int* rid,
+                                         const unsigned char* valid,
+                                         const unsigned char* ovf_in, int B,
+                                         int P, int C, int l_pac, int w,
+                                         int max_chain_gap, int* out,
+                                         int* n_out, unsigned char* ovf_out,
+                                         int* chain_of) {
   ChainArgs a{qbeg, rbeg, slen, rid, valid, ovf_in, B, P, C, l_pac, w,
               max_chain_gap, out, n_out, ovf_out, chain_of};
   std::vector<int> st((size_t)CH_NFIELDS * C);
   SerialLanes L;
-  for (int b = 0; b < B; ++b) chain_read(a, b, st.data(), L);
+  for (int b = 0; b < B; ++b) chain_read_wide(a, b, st.data(), L);
   return 0;
 }
 

@@ -11,7 +11,8 @@ cudaGetLastError(); `check` raises when that is not 0.
 
 build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
-or 32 lanes in lockstep for the PairHMM register path), which the CPU
+or 32 lanes in lockstep for the chain loop's and PairHMM's register
+paths), which the CPU
 tests hold against the plain PyTorch versions. The port never runs it.
 """
 
@@ -38,9 +39,11 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # argument types of each C entry point: every pointer and the stream as
 # c_void_p (ctypes would cut a Python int to 32 bits otherwise)
 _SIGS = {
-    "fgdp_chain_loop": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P] * 2 + [_P],
+    "fgdp_chain_loop": [_P] * 6 + [_I] * 6 + [_P] * 4 + [_P] * 3 + [_P],
     "fgdp_sw_extend": [_P] * 5 + [_I] * 13 + [_P] * 5 + [_P],
     "fgdp_chain_loop_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    "fgdp_chain_loop_wide_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
+    "fgdp_chain_reg_max_c": [],
     "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
     "fgdp_pairhmm_f32": [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P],
     "fgdp_pairhmm_f32_host": [_P] * 6 + [_I] * 4 + [_P],

@@ -4,8 +4,8 @@
 
 runs `cuobjdump -sass` (CUDA toolkit) on the kernel libraries under
 build/fgdp_tpu_torch/ (building them first) and prints, for the SW and
-PairHMM kernels' row loops at every K and for the INT32 issue probe's
-step loop,
+PairHMM kernels' row loops at every K, the chain loop's step loop at
+every K and the INT32 issue probe's step loop,
 the SASS instructions of the loop body and the most frequent opcodes.
 A loop is the span from a backward branch's target to the branch; the
 outermost (largest) loop of a kernel's main body is taken, and
@@ -132,6 +132,13 @@ def pairhmm_row_loops():
     return template_loops("pairhmm", "pairhmm_regs_kernel")
 
 
+def chain_step_loops():
+    """{K: (instructions, opcodes)} of the chain loop's register kernel's
+    step loop (the next chunk's loads and the chain-id stores of a chunk
+    change included)."""
+    return template_loops("chain_loop", "chain_regs_kernel")
+
+
 def int32_step_loops():
     """{chains: (instructions, opcodes)} of the INT32 probe's step loop."""
     return template_loops("vpu_ceiling", "vpu_int32_kernel")
@@ -145,7 +152,7 @@ def _show(label, loop, per=None):
 
 
 def main():
-    kernels.build(("sw_extend", "pairhmm", "vpu_ceiling"))
+    kernels.build(("sw_extend", "pairhmm", "chain_loop", "vpu_ceiling"))
     for k, loop in sorted(sw_row_loops().items()):
         if loop is not None:
             _show(f"sw_extend K={k} row loop (32 lanes x {k} columns)",
@@ -154,6 +161,10 @@ def main():
         if loop is not None:
             _show(f"pairhmm K={k} row loop (32 lanes x {k} columns)",
                   loop, ("column a lane holds", k))
+    for k, loop in sorted(chain_step_loops().items()):
+        if loop is not None:
+            _show(f"chain_loop K={k} step loop (32 lanes x {k} chain "
+                  f"slots)", loop, ("slot a lane holds", k))
     from .vpu_ceiling import INT_OPS_PER_ROUND, N_FMA
     for nch, loop in sorted(int32_step_loops().items()):
         if loop is not None:

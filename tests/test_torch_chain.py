@@ -4,7 +4,10 @@ chain_seeds on the same SeedBatch must give an equal ChainBatch, field
 by field, to fgdp_tpu's jnp loop; the plain chain loop must equal the
 Pallas kernel in interpret mode; and the kernel's own per-read logic
 (csrc/chain_loop.cuh), built for the host by g++, must equal the plain
-loop. All comparisons are exact (tolerance 0)."""
+loop and the Pallas kernel: the register path with 32 lanes in lockstep
+(chunked seed loads, ballots, shuffles, slots held by lane and
+register, the search run one step ahead), the wide path with one serial
+lane. All comparisons are exact (tolerance 0)."""
 
 import shutil
 
@@ -22,7 +25,7 @@ from fgdp_tpu_torch.config import AlignConfig
 from fgdp_tpu_torch.ops import kernels
 from fgdp_tpu_torch.ops.smem import SeedBatch
 
-from test_torch_cuda import synth_seeds
+from test_torch_cuda import chain_edge_seeds, synth_seeds
 from test_torch_seeding import (build_both, one_torch_thread,  # noqa: F401
                                 read_codes)
 
@@ -85,7 +88,8 @@ def twin():
     return kernels.build_host_twin()
 
 
-def twin_loop(lib, cols, l_pac, C, w, gap):
+def twin_loop(lib, cols, l_pac, C, w, gap, wide=False):
+    """The host twin's register path (its wide path if `wide`)."""
     qbeg, rbeg, slen, rid, valid, ovf = cols
     B, P = qbeg.shape
     arr = [np.ascontiguousarray(a, np.int32) for a in (qbeg, rbeg, slen,
@@ -95,11 +99,12 @@ def twin_loop(lib, cols, l_pac, C, w, gap):
     out = np.zeros((len(chain.LOOP_FIELDS), B, C), np.int32)
     n = np.zeros(B, np.int32)
     ovf_out = np.zeros(B, np.uint8)
-    chain_of = np.zeros((B, P), np.int32)
-    lib.fgdp_chain_loop_host(*(a.ctypes.data for a in arr), vb.ctypes.data,
-                             ob.ctypes.data, B, P, C, l_pac, w, gap,
-                             out.ctypes.data, n.ctypes.data,
-                             ovf_out.ctypes.data, chain_of.ctypes.data)
+    chain_of = np.full((B, P), 7, np.int32)   # every slot is written
+    fn = lib.fgdp_chain_loop_wide_host if wide else lib.fgdp_chain_loop_host
+    rc = fn(*(a.ctypes.data for a in arr), vb.ctypes.data, ob.ctypes.data,
+            B, P, C, l_pac, w, gap, out.ctypes.data, n.ctypes.data,
+            ovf_out.ctypes.data, chain_of.ctypes.data)
+    assert rc == 0
     res = dict(zip(chain.LOOP_FIELDS, out))
     res.update(n=n, ovf=ovf_out.astype(bool), chain_of=chain_of)
     return res
@@ -115,3 +120,55 @@ def test_kernel_logic_equals_plain(twin, seed, B, P, C):
     got = twin_loop(twin, cols, l_pac, C, opt.w, opt.max_chain_gap)
     for k, v in want.items():
         np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
+
+
+# the register path's lane and chunk boundaries: C slots over 1-8
+# registers a lane, P seed slots over 1-4 chunks of 32
+EDGE_CS = (1, 31, 32, 33, 64, 256)
+EDGE_PS = (1, 31, 32, 33, 100)
+
+
+@pytest.mark.parametrize("P", EDGE_PS)
+@pytest.mark.parametrize("C", EDGE_CS)
+def test_kernel_logic_at_edges(twin, C, P):
+    """The register path's twin equals the plain loop and the Pallas
+    kernel in interpret mode on chain_edge_seeds' reads (no valid slot,
+    all valid, invalid runs across chunk boundaries, ties won by the
+    chain the previous step opened, rbegs below it, every chain slot
+    filled, both strands)."""
+    l_pac = 5000
+    cols = chain_edge_seeds(7 * C + P, 12, P, l_pac)
+    opt = AlignConfig()
+    want = chain.chain_loop_plain(*(_t(a) for a in cols), l_pac, C, opt.w,
+                                  opt.max_chain_gap)
+    pal = chain_loop_pallas(*(jnp.asarray(a) for a in cols), l_pac, C,
+                            opt.w, opt.max_chain_gap, interpret=True)
+    got = twin_loop(twin, cols, l_pac, C, opt.w, opt.max_chain_gap)
+    for k, v in want.items():
+        np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
+        np.testing.assert_array_equal(np.asarray(pal[k]), got[k],
+                                      err_msg=k)
+    if P > C:
+        # more new chains than slots (the all-distinct read): overflow
+        # at n == C
+        assert bool((got["ovf"] & ~cols[5]).any())
+
+
+@pytest.mark.parametrize("C", [257, 320])
+def test_wide_logic_equals_plain(twin, C):
+    """The wide path (C above the register path's 256) with one serial
+    lane equals the plain loop; the register path's twin refuses C."""
+    l_pac = 5000
+    P = 300
+    cols = chain_edge_seeds(C, 6, P, l_pac)
+    opt = AlignConfig()
+    want = chain.chain_loop_plain(*(_t(a) for a in cols), l_pac, C, opt.w,
+                                  opt.max_chain_gap)
+    got = twin_loop(twin, cols, l_pac, C, opt.w, opt.max_chain_gap,
+                    wide=True)
+    for k, v in want.items():
+        np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
+    assert int(got["n"].max()) > 256
+    assert twin.fgdp_chain_reg_max_c() == 256
+    with pytest.raises(AssertionError):
+        twin_loop(twin, cols, l_pac, C, opt.w, opt.max_chain_gap)

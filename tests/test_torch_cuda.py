@@ -136,6 +136,38 @@ def synth_seeds(seed, B, P, l_pac):
     return qbeg, rbeg, slen, rid, valid, ovf
 
 
+def chain_edge_seeds(seed, B, P, l_pac):
+    """synth_seeds' reads plus rows at the chain kernel's edges: no valid
+    slot; every slot valid; a run of invalid slots across the 32-slot
+    boundaries; a run of new chains at one pos (alternating contigs, so
+    none grows another: the latest must win every tie) and rbegs that
+    step down below the chain just opened; falling rbegs on both sides
+    of l_pac, every seed a new chain, that fill every chain slot."""
+    qbeg, rbeg, slen, rid, valid, ovf = synth_seeds(seed, B, P, l_pac)
+    rng = np.random.default_rng(seed + 1000)
+    t = np.arange(P)
+    valid[0] = False
+    valid[1] = True
+    if B > 2:
+        valid[2] = (t < 20) | (t >= 70)
+    if B > 3:
+        # per 4 slots: a chain at 1000, two more at 1000 on the other
+        # contig and back (each the latest of the ties), then rb 900
+        # below them; the block moves up by 2000 every 16 slots
+        qbeg[3] = t % 130
+        rbeg[3] = np.array([1000, 1000, 1000, 900])[t % 4] + 2000 * (t // 16)
+        rid[3] = np.array([0, 1, 0, 0])[t % 4]
+        slen[3] = 25
+        valid[3] = True
+    if B > 4:
+        qbeg[4] = np.sort(rng.integers(0, 130, P))
+        # rbeg falling: no chain is ever eligible, each seed opens one
+        rbeg[4] = np.linspace(2 * l_pac - 300, 0, P).astype(np.int32)
+        rid[4] = (rbeg[4] >= l_pac).astype(np.int32)
+        valid[4] = True
+    return qbeg, rbeg, slen, rid, valid, ovf
+
+
 def hmm_cases(seed, n, R, H, cq=10, n_frac=0.0, hopeless=0.0):
     """PairHMM pairs: reads copied from their haplotype with 8%
     substitutions at ragged read and haplotype lengths, base quals 5-40,
@@ -399,6 +431,77 @@ def test_chain_kernel_equals_plain(dev, seed, B, P, C):
     want = chain.chain_loop_plain(*cols, 5000, C, OPT.w, OPT.max_chain_gap)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _chain_on_card_equals_plain(dev, cols, C, path, l_pac=5000):
+    """The kernel on the seed columns `cols` equals the plain loop,
+    tensor for tensor, through the kernel path `path`."""
+    t = [torch.as_tensor(a, device=dev) for a in cols]
+    n0 = kernels.LAUNCHES["chain_loop"]
+    p0 = dict(chain.PATH_LAUNCHES)
+    got = chain.chain_loop(*t, l_pac, C, OPT.w, OPT.max_chain_gap)
+    assert kernels.LAUNCHES["chain_loop"] == n0 + 1
+    assert chain.PATH_LAUNCHES[path] == p0[path] + 1
+    want = chain.chain_loop_plain(*t, l_pac, C, OPT.w, OPT.max_chain_gap)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    return got
+
+
+# the register path's lane and chunk boundaries (test_torch_chain.py
+# holds the host twin at the same shapes)
+CHAIN_EDGE_CS = (1, 31, 32, 33, 64, 256)
+CHAIN_EDGE_PS = (1, 31, 32, 33, 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", CHAIN_EDGE_PS)
+@pytest.mark.parametrize("C", CHAIN_EDGE_CS)
+def test_chain_kernel_at_lane_boundaries(dev, C, P):
+    _chain_on_card_equals_plain(dev, chain_edge_seeds(7 * C + P, 12, P,
+                                                      5000), C, "registers")
+
+
+# the bench shape, an escalated one, the ladder's widest (P 2,048, C 256)
+# and the wide path (C 320)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,P,C,path", [(4096, 256, 64, "registers"),
+                                        (1024, 1024, 128, "registers"),
+                                        (256, 2048, 256, "registers"),
+                                        (64, 400, 320, "wide")])
+def test_chain_kernel_at_main_shapes(dev, B, P, C, path):
+    got = _chain_on_card_equals_plain(
+        dev, chain_edge_seeds(B + P + C, B, P, 5000), C, path)
+    assert bool(got["ovf"].any()) and int(got["n"].max()) == min(C, P)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_picks_path_by_shape(dev):
+    """The same seeds at C = 256 take the register path, at C = 257 the
+    wide one, with the same results (no read opens 256 chains): the
+    launch width alone decides."""
+    cols = chain_edge_seeds(31, 40, 200, 5000)
+    lim = kernels.load("chain_loop").fgdp_chain_reg_max_c()
+    assert lim == max(CHAIN_EDGE_CS)
+    a = _chain_on_card_equals_plain(dev, cols, lim, "registers")
+    b = _chain_on_card_equals_plain(dev, cols, lim + 1, "wide")
+    for k in a:
+        want = a[k]
+        got = b[k][:, :lim] if k in chain.LOOP_FIELDS else b[k]
+        assert torch.equal(got, want), k
+
+
+@pytest.mark.cuda
+def test_chain_kernel_times_each_launch_when_asked(dev):
+    kernels.TIMED["chain_loop"] = []
+    try:
+        _chain_on_card_equals_plain(dev, chain_edge_seeds(5, 64, 256, 5000),
+                                    64, "registers")
+        pairs = kernels.TIMED["chain_loop"]
+    finally:
+        kernels.TIMED.pop("chain_loop", None)
+    torch.cuda.synchronize()
+    assert len(pairs) == 1 and pairs[0][0].elapsed_time(pairs[0][1]) > 0
 
 
 @pytest.mark.cuda
