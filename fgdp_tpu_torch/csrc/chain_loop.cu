@@ -6,28 +6,31 @@
 // a new chain), with the wq/wr weights, each seed's chain id and the
 // overflow flag when all C slots are used.
 //
-// Design: one warp per read, the read's whole chain table in registers
-// (chain_loop.cuh, chain_read_regs): slot c in lane c % 32, register
+// Design: one warp per read (chain_loop.cuh, chain_read_regs). pos, the
+// key of the search, lives in registers: slot c in lane c % 32, register
 // c / 32, K = ceil(C / 32) a template parameter (every K up to CH_MAX_K
 // is instantiated: C <= 256, the widest the escalation ladder makes).
-// Seeds come in 32 slots at a time with coalesced loads, the next chunk
-// in flight; invalid slots are skipped by walking the chunk's ballot
-// word. "Largest pos <= rbeg, ties to the latest slot" is two warp
-// max-reductions, run for step t + 1 while step t decides and corrected
-// by step t's new chain with one compare (a chain's pos never changes
-// after it opens). Slot lo's fields come by shuffle from its owner lane;
-// no __syncwarp and no shared memory on a step's path. Launches whose C
-// is above 32 CH_MAX_K take the wide path, the table in shared memory
-// (chain_read_wide); the C entry point chooses from C before the launch
-// and reports the path.
+// The other fields live in the warp's table in shared memory (12 KB at
+// C = 256), read with broadcast 16-byte loads: with them in registers
+// too, a step's writes and reads took 12 K selects and 11 shuffles, and
+// C = 256 ran 0.96 ms against 0.59 here (PERF.md, PR 6). Seeds come in
+// 32 slots at a time with coalesced loads, the next chunk in flight;
+// invalid slots are skipped by walking the chunk's ballot word. "Largest
+// pos <= rbeg, ties to the latest slot" is two warp max-reductions, run
+// for step t + 1 beside step t's decision and corrected by step t's new
+// chain with one compare (a chain's pos never changes after it opens).
+// Launches whose C is above 32 CH_MAX_K take the wide path, the whole
+// table in shared memory (chain_read_wide); the C entry point chooses
+// from C before the launch and reports the path.
 //
 // What bounds it: the chain of dependent steps inside the longest read.
 // The bytes (the valid flags, 4 words per valid slot, the table and the
-// chain ids) and the issue of a few hundred warp instructions a step
-// over the whole batch take microseconds; a read's steps are serial, so
-// the kernel takes the longest read's valid steps times one step's
-// latency, which this design cuts to the decision's own integer chain
-// (the search, the seed shuffles and the field shuffles run beside it).
+// chain ids) and the issue of the batch's steps take microseconds; a
+// read's steps are serial, so the kernel takes at least the longest
+// read's valid steps times one step's latency. That latency is what the
+// design cuts: the search, the seed shuffles and the row loads run
+// beside the decision's own integer chain; what is left is about 175
+// warp instructions a step, issued in order.
 #include <cuda_runtime.h>
 
 #include "chain_loop.cuh"
@@ -37,10 +40,12 @@ constexpr int kWarps = 2;   // reads per block
 template <int K>
 __global__ void __launch_bounds__(kWarps * 32)
     chain_regs_kernel(ChainArgs a) {
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  extern __shared__ __align__(16) int tables[];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
   if (b >= a.B) return;   // uniform per warp
   WarpLanes L;
-  chain_read_regs<K>(a, b, L);
+  chain_read_regs<K>(a, b, tables + warp * CH_NFIELDS * a.C, L);
 }
 
 __global__ void chain_wide_kernel(ChainArgs a) {
@@ -55,9 +60,11 @@ __global__ void chain_wide_kernel(ChainArgs a) {
 static void launch_regs(int K, const ChainArgs& a, cudaStream_t s) {
   static_assert(CH_MAX_K == 8, "instantiate every K up to CH_MAX_K");
   const int blocks = (a.B + kWarps - 1) / kWarps;
-#define CH_LAUNCH(k)                                          \
-  case k:                                                     \
-    chain_regs_kernel<k><<<blocks, kWarps * 32, 0, s>>>(a);   \
+  // 12 KB a warp at C = 256
+  const size_t shmem = (size_t)kWarps * CH_NFIELDS * a.C * sizeof(int);
+#define CH_LAUNCH(k)                                              \
+  case k:                                                         \
+    chain_regs_kernel<k><<<blocks, kWarps * 32, shmem, s>>>(a);   \
     break;
   switch (K) {
     CH_LAUNCH(1) CH_LAUNCH(2) CH_LAUNCH(3) CH_LAUNCH(4)

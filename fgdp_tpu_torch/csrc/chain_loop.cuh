@@ -13,24 +13,26 @@
 //
 // Two layouts of the same logic:
 //
-// - chain_read_regs<K>, the main path (C <= 32 CH_MAX_K): the table in
-//   registers, slot c in lane c % 32, register c / 32, K = ceil(C / 32).
-//   The seeds stream in 32 slots at a time, one slot a lane, the next
-//   chunk's loads in flight; the chunk's valid flags become one ballot
-//   word whose set bits are the steps, and a step takes its seed by
-//   shuffle. The search for step t + 1 runs on the table as it stood
-//   before step t, in parallel with step t's decision: a chain's pos is
-//   written only when the chain opens, and a new chain takes slot n, the
-//   highest, so step t's new chain (pos rb_t) corrects the search with
-//   one compare: if rb_t <= rb_{t+1} it is eligible, and if rb_t is at
-//   least the searched maximum it is the latest of the ties. Slot lo's
-//   other fields are read by shuffle from its owner lane, on the
-//   registers before step t's write; if step t wrote slot lo, its values
-//   come straight from step t. Every lane decides alike from the shared
-//   values; the owner lane of the written slot keeps the write. Lane
-//   t % 32 keeps step t's chain id and the warp stores 32 at a time.
-// - chain_read_wide, for C above: the table in shared memory, two warp
-//   reductions a step, lane 0 writing the table.
+// - chain_read_regs<K>, the main path (C <= 32 CH_MAX_K): one warp per
+//   read, pos in registers (slot c in lane c % 32, register c / 32,
+//   K = ceil(C / 32)), the other fields in the warp's table in shared
+//   memory, one 48-byte row a slot. The seeds stream in 32 slots at a
+//   time, one slot a lane, the next chunk's loads in flight; the chunk's
+//   valid flags become one ballot word whose set bits are the steps, and
+//   a step takes its seed by shuffle, a step ahead. The search for step
+//   t + 1 (a warp max over pos, then over the ties' slots) runs on the
+//   table as it stood before step t, beside step t's decision: a chain's
+//   pos is written only when the chain opens, and a new chain takes
+//   slot n, the highest, so step t's new chain (pos rb_t) corrects the
+//   search with one compare: if rb_t <= rb_{t+1} it is eligible, and if
+//   rb_t is at least the searched maximum it is the latest of the ties.
+//   Slot lo's row is read by every lane with three 16-byte loads, before
+//   step t's write lands; if step t wrote slot lo, its values come
+//   straight from step t. Every lane decides alike (branch-free); the
+//   lead lane writes the row and lane t % 32 keeps step t's chain id,
+//   stored 32 at a time.
+// - chain_read_wide, for C above: the whole table in shared memory, two
+//   warp reductions a step, lane 0 writing the table.
 #pragma once
 
 #include "common.cuh"
@@ -138,11 +140,52 @@ FGDP_HD void chain_search(const typename L::I (&pos)[K], int n, int rb,
   lo = lanes.max(lc);
 }
 
-// One read on the register path (K = ceil(C / 32) of its launch).
+// four ints at p (16-byte aligned): one vector access on the card
+FGDP_HD void ch_load4(const int* p, int* d) {
+#ifdef __CUDA_ARCH__
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  d[0] = v.x;
+  d[1] = v.y;
+  d[2] = v.z;
+  d[3] = v.w;
+#else
+  for (int i = 0; i < 4; ++i) d[i] = p[i];
+#endif
+}
+
+FGDP_HD void ch_store4(int* p, const int* s) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<int4*>(p) = make_int4(s[0], s[1], s[2], s[3]);
+#else
+  for (int i = 0; i < 4; ++i) p[i] = s[i];
+#endif
+}
+
+// A step's write of slot record `rec` at d: all 12 fields of a new chain
+// (`opened`), lq..rend of an append (pk), by the lead lane; then every
+// lane may read the table.
+template <class L>
+FGDP_HD void chain_write(int* d, const int* rec, bool opened, bool pk,
+                         const L& lanes) {
+  const bool lead = lanes.lead();
+  if (lead && opened) ch_store4(d, rec);
+  if (lead && pk) {
+    ch_store4(d + 4, rec + 4);
+    ch_store4(d + 8, rec + 8);
+  }
+  lanes.sync();
+}
+
+// One read on the register path (K = ceil(C / 32) of its launch). pos
+// lives in registers; `tb` is the warp's table in shared memory, slot c
+// at tb + CH_NFIELDS c (16-byte aligned), all 12 fields, written by the
+// lead lane and read by every lane at the same address.
 template <int K, class L>
-FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
+FGDP_HD void chain_read_regs(const ChainArgs& a, int b, int* tb,
+                             const L& lanes) {
   using I = typename L::I;
   const int C = a.C, P = a.P;
+  const int l_pac = a.l_pac, w = a.w, gap = a.max_chain_gap;
   const long long row = (long long)b * P;
   const I lane = lanes.lane();
 
@@ -155,19 +198,20 @@ FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
   }
   const int tl = lanes.max(tl_l);
 
-  I st[CH_NFIELDS][K];
+  I pos[K];
 #pragma unroll
-  for (int f = 0; f < CH_NFIELDS; ++f)
-#pragma unroll
-    for (int k = 0; k < K; ++k) st[f][k] = I(0);
+  for (int k = 0; k < K; ++k) pos[k] = I(0);
+  for (int i0 = 0; i0 < CH_NFIELDS * C; i0 += 32)
+    lanes.store_if(tb, lane + i0, I(0), lane + i0 < CH_NFIELDS * C);
+  lanes.sync();
 
   ChainStream<L> seeds(a, row, tl, lanes);
   int n = 0;
   bool ovf = a.ovf_in[b] != 0;
   I cof = I(-1);   // chain ids of step chunk oc, step t in lane t % 32
   int oc = 0;
-  // the previous step's write, not yet in the registers: the record
-  // `rec` of slot pw (a new chain when `opened`, else an append when pk)
+  // the previous step's write, not yet in the table: the record `rec`
+  // of slot pw (a new chain when `opened`, else an append when pk)
   bool pk = false, opened = false;
   int pw = 0, prb = 0;
   int rec[CH_NFIELDS];
@@ -178,8 +222,11 @@ FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
   int s_mp = -1, s_lo = 0;
   bool s_has = false;
 
-  int t = 0, sd[4] = {0, 0, 0, 0};
+  // the current step (t, sd: qbeg, rbeg, slen, rid) and the next one,
+  // fetched a step ahead so that its search starts with the step
+  int t = 0, sd[4] = {0, 0, 0, 0}, t1 = 0, sd1[4] = {0, 0, 0, 0};
   bool more = seeds.next(t, sd);
+  bool more1 = seeds.next(t1, sd1);
   while (more) {
     const int qb = sd[0], rb = sd[1], ln = sd[2], rd = sd[3];
     while ((t >> 5) != oc) {
@@ -189,65 +236,56 @@ FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
       ++oc;
     }
 
-    // slot s_lo's fields before the previous step's write, from its
-    // owner lane (pos is not needed)
+    // slot s_lo before the previous step's write (where that step wrote
+    // it, the values read are replaced below)
     int g[CH_NFIELDS];
-    g[CH_POS] = 0;
     {
-      const int r = s_lo >> 5, src = s_lo & 31;
-#pragma unroll
-      for (int f = CH_CRID; f < CH_NFIELDS; ++f) {
-        I x = st[f][0];
-#pragma unroll
-        for (int k = 1; k < K; ++k) x = lanes.sel(r == k, st[f][k], x);
-        g[f] = lanes.shfl(x, src);
-      }
+      const int* sl = tb + CH_NFIELDS * s_lo;
+      ch_load4(sl, g);
+      ch_load4(sl + 4, g + 4);
+      ch_load4(sl + 8, g + 8);
     }
-    // the previous step's write into the registers
+    // the previous step's write: into the table, and pos into its
+    // owner lane's register
+    chain_write(tb + CH_NFIELDS * pw, rec, opened, pk, lanes);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const auto hit = (lane == (pw & 31)) & ((pw >> 5) == k);
-#pragma unroll
-      for (int f = 0; f < CH_NFIELDS; ++f)
-        st[f][k] = lanes.sel(hit & (f <= CH_FR ? opened : pk), rec[f],
-                             st[f][k]);
-    }
-    // the next step, and its search on the table before this step
-    int t2 = 0, sd2[4] = {0, 0, 0, 0};
-    const bool more2 = seeds.next(t2, sd2);
-    int mp2, lo2;
-    bool has2;
-    chain_search<K>(st[CH_POS], n, sd2[1], lanes, mp2, lo2, has2);
+    for (int k = 0; k < K; ++k)
+      pos[k] = lanes.sel((lane == (pw & 31)) & ((pw >> 5) == k) & opened,
+                         rec[CH_POS], pos[k]);
+    // the next step's search, on the table before this step
+    int mp1, lo1;
+    bool has1;
+    chain_search<K>(pos, n, sd1[1], lanes, mp1, lo1, has1);
 
     // this step's slot lo: the search's, or the chain the previous step
     // opened (slot n then, the latest, so it wins a tie); slot lo's
-    // values straight from the previous step where it wrote them
-    const bool new_elig = opened && prb <= rb;
-    const bool has_lo = s_has || new_elig;
-    const int lo = (new_elig && prb >= s_mp) ? pw : s_lo;
-    const bool fresh = pk && lo == pw;
+    // values straight from the previous step where it wrote them. The
+    // decision is warp-uniform and branch-free (& and |, not && and ||).
+    const bool new_elig = opened & (prb <= rb);
+    const bool has_lo = s_has | new_elig;
+    const int lo = (new_elig & (prb >= s_mp)) ? pw : s_lo;
+    const bool fresh = pk & (lo == pw);
 #pragma unroll
     for (int f = CH_CRID; f < CH_NFIELDS; ++f)
-      if (f <= CH_FR ? (fresh && opened) : fresh) g[f] = rec[f];
+      g[f] = (f <= CH_FR ? (fresh & opened) : fresh) ? rec[f] : g[f];
 
     const bool same_rid = g[CH_CRID] == rd;
-    const bool contained = (qb >= g[CH_FQ]) &&
-                           (qb + ln <= g[CH_LQ] + g[CH_LL]) &&
-                           (rb >= g[CH_FR]) &&
+    const bool contained = (qb >= g[CH_FQ]) &
+                           (qb + ln <= g[CH_LQ] + g[CH_LL]) &
+                           (rb >= g[CH_FR]) &
                            (rb + ln <= g[CH_LR] + g[CH_LL]);
     const bool diff_strand =
-        ((g[CH_LR] < a.l_pac) || (g[CH_FR] < a.l_pac)) && (rb >= a.l_pac);
+        ((g[CH_LR] < l_pac) | (g[CH_FR] < l_pac)) & (rb >= l_pac);
     const int x = qb - g[CH_LQ], y = rb - g[CH_LR];
-    const bool growable = (y >= 0) && (x - y <= a.w) && (y - x <= a.w) &&
-                          (x - g[CH_LL] < a.max_chain_gap) &&
-                          (y - g[CH_LL] < a.max_chain_gap);
-    const bool merged_contained = has_lo && same_rid && contained;
+    const bool growable = (y >= 0) & (x - y <= w) & (y - x <= w) &
+                          (x - g[CH_LL] < gap) & (y - g[CH_LL] < gap);
+    const bool merged_contained = has_lo & same_rid & contained;
     const bool appended =
-        has_lo && same_rid && !contained && !diff_strand && growable;
-    const bool new_chain = !(merged_contained || appended);
+        has_lo & same_rid & !contained & !diff_strand & growable;
+    const bool new_chain = !(merged_contained | appended);
     const bool room = n < C;
     // merged_contained: -1 (dropped)
-    const int cid = appended ? lo : ((new_chain && room) ? n : -1);
+    const int cid = appended ? lo : ((new_chain & room) ? n : -1);
     cof = lanes.sel(lane == (t & 31), cid, cof);
 
     // this step's write: the whole record of slot lo (appended) or n
@@ -265,31 +303,25 @@ FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
     rec[CH_WR] = appended ? g[CH_WR] + dr : ln;
     rec[CH_QEND] = appended ? fgdp_max(g[CH_QEND], qb + ln) : qb + ln;
     rec[CH_REND] = appended ? fgdp_max(g[CH_REND], rb + ln) : rb + ln;
-    opened = new_chain && room;
-    pk = appended || opened;
+    opened = new_chain & room;
+    pk = appended | opened;
     pw = appended ? lo : n;
     prb = rb;
-    ovf = ovf || (new_chain && !room);
+    ovf = ovf | (new_chain & !room);
     n += opened ? 1 : 0;
 
-    s_mp = mp2;
-    s_lo = lo2;
-    s_has = has2;
-    t = t2;
+    s_mp = mp1;
+    s_lo = lo1;
+    s_has = has1;
+    t = t1;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sd[c] = sd2[c];
-    more = more2;
+    for (int c = 0; c < 4; ++c) sd[c] = sd1[c];
+    more = more1;
+    more1 = seeds.next(t1, sd1);   // false again once past tl
   }
 
   // the last step's write, the last chunks of chain ids, the table
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const auto hit = (lane == (pw & 31)) & ((pw >> 5) == k);
-#pragma unroll
-    for (int f = 0; f < CH_NFIELDS; ++f)
-      st[f][k] = lanes.sel(hit & (f <= CH_FR ? opened : pk), rec[f],
-                           st[f][k]);
-  }
+  chain_write(tb + CH_NFIELDS * pw, rec, opened, pk, lanes);
   for (; 32 * oc < P; ++oc) {
     lanes.store_if(a.chain_of + row, lane + 32 * oc, cof,
                    lane + 32 * oc < P);
@@ -297,12 +329,14 @@ FGDP_HD void chain_read_regs(const ChainArgs& a, int b, const L& lanes) {
   }
   const long long BC = (long long)a.B * C;
 #pragma unroll
-  for (int f = 0; f < CH_NOUT; ++f)
+  for (int k = 0; k < K; ++k) {
+    const I c = lane + 32 * k;
+    const auto ok = c < C;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const I c = lane + 32 * k;
-      lanes.store_if(a.out + f * BC + (long long)b * C, c, st[f][k], c < C);
-    }
+    for (int f = 0; f < CH_NOUT; ++f)
+      lanes.store_if(a.out + f * BC + (long long)b * C, c,
+                     lanes.load(tb + f, c * CH_NFIELDS, ok, 0), ok);
+  }
   // n and ovf are the same in every lane: one store of one value
   a.n_out[b] = n;
   a.ovf_out[b] = ovf ? 1 : 0;

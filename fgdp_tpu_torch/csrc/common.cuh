@@ -92,6 +92,8 @@ struct WarpLanes {
     return c ? 1u : 0u;
 #endif
   }
+  // the one lane that writes what every lane computed alike
+  __host__ __device__ bool lead() const { return lane() == 0; }
   __host__ __device__ int sel(bool c, int a, int b) const {
     return c ? a : b;
   }

@@ -95,7 +95,9 @@ struct HostWarp {
     for (int i = 0; i < 32; ++i) p[idx.v[i]] = v.v[i];
   }
   void sync() const {}
-  // the chain loop's register path: int lanes
+  // the chain loop's register path: int lanes; the lockstep executor
+  // is the one writer of what every lane computed alike
+  bool lead() const { return true; }
   template <class C>
   I load_u8(const unsigned char* p, const I& idx, const C& ok) const {
     I r;
@@ -173,8 +175,9 @@ extern "C" int fgdp_chain_reg_max_c() { return 32 * CH_MAX_K; }
 
 template <int K>
 static void chain_regs_host(const ChainArgs& a) {
+  std::vector<int> tb((size_t)CH_NFIELDS * a.C);
   HostWarp L;
-  for (int b = 0; b < a.B; ++b) chain_read_regs<K>(a, b, L);
+  for (int b = 0; b < a.B; ++b) chain_read_regs<K>(a, b, tb.data(), L);
 }
 
 // The register path with 32 lockstep lanes, K = ceil(C / 32) as on the
