@@ -16,9 +16,13 @@ fails loudly:
               and PairHMM exactly equal; PairHMM at the bench shape, a
               bucket, a batch that underflows into the f64 re-run, a
               launch as mutect_scale makes them and one on the wide
-              path); for SW and PairHMM also their warp rows and the row
-              loop's SASS instructions (cuobjdump), for SW each
-              query-length class's share of its time
+              path; the chain loop at its lane and chunk edges, the bench
+              shape, an escalated one, the ladder's widest and the wide
+              path, with its path, ms per step of the longest read and
+              its serial bound); for SW and PairHMM also their warp rows
+              and the SASS instructions of the row loops (of the chain
+              loop's step loop), for SW each query-length class's share
+              of its time
   4. golden   `index` + `mem` on the golden fixtures, field-compared with
               the reference aligner's SAM like tests/test_golden.py
   5. ladder   a tight-capacity batch through every escalation rung on
@@ -26,8 +30,9 @@ fails loudly:
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
               reference (scripts/gen_genome.py's generator) and 16,384
               single-end 151 bp reads; launch counts, reads/s, per-stage
-              ms, the SW kernel's summed time (CUDA events around every
-              launch), peak device memory, and placement accuracy
+              ms, the SW and chain-loop kernels' summed time (CUDA
+              events around every launch; the chain loop's by launch
+              shape), peak device memory, and placement accuracy
   7. mutect_golden  `mutect` on tests/golden/mutect on the card, held
               against the reference binary's golden.vcf by
               tests/test_golden_vcf.py's rules
@@ -54,7 +59,8 @@ fails loudly:
               phase's index and reads plus 1,638 planted duplicates:
               record count, coordinate order, the planted duplicates
               found, and the records equal to the `mem` SAM of the same
-              reads, flags aside; reads/s end to end
+              reads, flags aside; reads/s end to end; the chain loop's
+              launches and summed kernel time
 Then one JSON line of the kernels, the card line, and the result line.
 """
 

@@ -5,8 +5,9 @@ B-tree chaining (mem_chain_seeds_new, src/bwamem.cpp:1163-1237) and
 chain filter (mem_chain_flt :529, mem_chain_weight :452) over a read
 batch. Seed positions come from one batched SA gather; the chain loop
 runs in the hand-written kernel csrc/chain_loop.cu on the card (it
-replaces the TPU kernel fgdp_tpu/ops/chain_pallas.py; the chain table in
-registers, or in shared memory above 256 chain slots), and
+replaces the TPU kernel fgdp_tpu/ops/chain_pallas.py; pos in registers
+and the slot rows in shared memory, or the whole table in shared memory
+above 256 chain slots), and
 `chain_loop_plain` beside it is the same loop as torch ops over all
 reads, transcribed from the JAX package's jnp loop: the CPU tests run
 it, and the card's smoke run holds the kernel against it.
@@ -40,8 +41,8 @@ _I32 = torch.int32
 LOOP_FIELDS = ("pos", "crid", "fq", "fr", "lq", "lr", "ll", "ns", "wq",
                "wr")
 # the kernel's two paths, as its C entry point reports the one it took
-# (chosen from C alone, before the launch): the chain table in
-# registers, or in shared memory for more chain slots than the kernel
+# (chosen from C alone, before the launch): pos in registers, or the
+# whole table in shared memory for more chain slots than the kernel
 # library's fgdp_chain_reg_max_c(); launches of each
 KERNEL_PATHS = ("registers", "wide")
 PATH_LAUNCHES = {p: 0 for p in KERNEL_PATHS}

@@ -3,18 +3,19 @@
 // per-pair (pairhmm.cuh) and per-element (vpu_ceiling.cuh) logic into a
 // plain C library, run with one serial lane (the register paths of the
 // chain loop and PairHMM with 32 lanes in lockstep), so the logic can be
-// held against the plain PyTorch versions where there is no nvcc. It builds with
-// -ffp-contract=off, so that no multiply and add fuse into one rounding,
-// as on the card. The port's CPU path never calls it; it runs the plain
-// PyTorch versions.
+// held against the plain PyTorch versions where there is no nvcc. It
+// builds with -ffp-contract=off, so that no multiply and add fuse into
+// one rounding, as on the card. The port's CPU path never calls it; it
+// runs the plain PyTorch versions.
 #include <cstddef>
 #include <type_traits>
 #include <vector>
 
 // A warp's 32 lanes in lockstep, for the register paths: a lane value is
 // an array of 32, every operation acts lane by lane, a rotation permutes
-// the array, a reduction or a ballot reads all 32. Declared before the kernels' logic so that its
-// operators and hmm_* overloads are the ones the logic finds.
+// the array, a reduction or a ballot reads all 32. Declared before the
+// kernels' logic so that its operators and hmm_* overloads are the ones
+// the logic finds.
 template <class T>
 struct Lane32 {
   T v[32];

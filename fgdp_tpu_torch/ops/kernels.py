@@ -12,8 +12,8 @@ cudaGetLastError(); `check` raises when that is not 0.
 build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
 or 32 lanes in lockstep for the chain loop's and PairHMM's register
-paths), which the CPU
-tests hold against the plain PyTorch versions. The port never runs it.
+paths), which the CPU tests hold against the plain PyTorch versions. The
+port never runs it.
 """
 
 from __future__ import annotations
