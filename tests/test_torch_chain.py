@@ -101,10 +101,10 @@ def twin_loop(lib, cols, l_pac, C, w, gap, wide=False):
     ovf_out = np.zeros(B, np.uint8)
     chain_of = np.full((B, P), 7, np.int32)   # every slot is written
     fn = lib.fgdp_chain_loop_wide_host if wide else lib.fgdp_chain_loop_host
-    rc = fn(*(a.ctypes.data for a in arr), vb.ctypes.data, ob.ctypes.data,
-            B, P, C, l_pac, w, gap, out.ctypes.data, n.ctypes.data,
-            ovf_out.ctypes.data, chain_of.ctypes.data)
-    assert rc == 0
+    if fn(*(a.ctypes.data for a in arr), vb.ctypes.data, ob.ctypes.data,
+          B, P, C, l_pac, w, gap, out.ctypes.data, n.ctypes.data,
+          ovf_out.ctypes.data, chain_of.ctypes.data):
+        raise ValueError(f"the host twin refused C={C}")
     res = dict(zip(chain.LOOP_FIELDS, out))
     res.update(n=n, ovf=ovf_out.astype(bool), chain_of=chain_of)
     return res
@@ -170,5 +170,5 @@ def test_wide_logic_equals_plain(twin, C):
         np.testing.assert_array_equal(v.numpy(), got[k], err_msg=k)
     assert int(got["n"].max()) > 256
     assert twin.fgdp_chain_reg_max_c() == 256
-    with pytest.raises(AssertionError):
+    with pytest.raises(ValueError, match="refused"):
         twin_loop(twin, cols, l_pac, C, opt.w, opt.max_chain_gap)
