@@ -13,8 +13,8 @@
 // The other fields live in the warp's table in shared memory (12 KB at
 // C = 256), read with broadcast 16-byte loads: with them in registers
 // too, a step's writes and reads took 12 K selects and 11 shuffles, and
-// C = 256 ran 0.96 ms against 0.59 here (PERF.md, PR 6). Seeds come in
-// 32 slots at a time with coalesced loads, the next chunk in flight;
+// C = 256 ran 0.96 ms against 0.59 here on an H100 (PERF.md). Seeds come
+// in 32 slots at a time with coalesced loads, the next chunk in flight;
 // invalid slots are skipped by walking the chunk's ballot word. "Largest
 // pos <= rbeg, ties to the latest slot" is two warp max-reductions, run
 // for step t + 1 beside step t's decision and corrected by step t's new
