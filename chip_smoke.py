@@ -19,12 +19,15 @@ fails loudly:
               path; the chain loop at its lane and chunk edges, the bench
               shape, an escalated one, the ladder's widest and the wide
               path, with its path, ms per step of the longest read and
-              its serial bound); for SW and PairHMM also their warp rows
-              and the SASS instructions of the row loops (of the chain
-              loop's step loop), for SW each query-length class's share
-              of its time
-  4. golden   `index` + `mem` on the golden fixtures, field-compared with
-              the reference aligner's SAM like tests/test_golden.py
+              its serial bound; kswv exactly equal on rescue jobs made as
+              pe_scale makes them, at the register path's lane edges, on
+              the wide path and on a mostly empty batch); for SW, kswv and
+              PairHMM also their warp rows and the SASS instructions of
+              the row loops (of the chain loop's step loop), for SW each
+              query-length class's share of its time
+  4. golden   `index` + `mem` on the golden fixtures (single-end, and the
+              pairs pe1.fq/pe2.fq), field-compared with the reference
+              aligner's SAM like tests/test_golden.py
   5. ladder   a tight-capacity batch through every escalation rung on
               the card, equal to the port's CPU run
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
@@ -61,6 +64,16 @@ fails loudly:
               found, and the records equal to the `mem` SAM of the same
               reads, flags aside; reads/s end to end; the chain loop's
               launches and summed kernel time
+ 12. pe_scale BASELINE config 2's class on the scale phase's index:
+              8,192 simulated pairs of 2 x 151 bp (insert N(400, 40), both
+              strands, sim_reads' errors, 5% of the pairs with one end
+              baited: every 12th base changed, so only mate rescue places
+              it) through `mem` in-process and `pipeline -t min(cpu-1, 8)`
+              (the workers rescue on the card): pairs/s and reads/s, kswv
+              launches, jobs, cells and kernel ms (the workers' included),
+              the share properly paired, placement of confident ends and
+              of the bait ends, the BAM's count and order, and the first
+              256 pairs' SAM on the card equal to the port's CPU run
 Then one JSON line of the kernels, the card line, and the result line.
 """
 
@@ -82,6 +95,7 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 PEAK_BYTES = 3.35e12
 MUTECT_SITES = 300
 MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
+PE_KERNELS = MEM_KERNELS + ("kswv",)        # and of paired-end `mem`
 
 
 def log(msg):
@@ -122,22 +136,63 @@ def sim_reads(g, n_reads, L, seed=1):
     out = []
     for i in range(n_reads):
         p = int(rng.integers(0, len(g) - L - 8))
-        s = g[p:p + L + 8].copy()
-        if rng.random() < 0.1:
-            k = int(rng.integers(20, L - 20))
-            d = int(rng.integers(1, 4))
-            if rng.random() < 0.5:
-                s = np.concatenate([s[:k], s[k + d:]])
-            else:
-                s = np.concatenate([s[:k], rng.integers(0, 4, d)
-                                    .astype(np.uint8), s[k:]])
-        s = s[:L]
-        m = rng.random(L) < 0.01
-        s[m] = (s[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        s = read_errors(rng, g[p:p + L + 8].copy(), L)
         rev = rng.random() < 0.5
         if rev:
             s = (3 - s)[::-1]
         out.append((f"r{i}_{p + 1}_{'-' if rev else '+'}", s))
+    return out
+
+
+def read_errors(rng, s, L):
+    """sim_reads' error model on the forward sequence s (L + 8 bases):
+    one 1-3 base indel in a tenth of the reads, then 1% substitutions;
+    returns the first L bases."""
+    if rng.random() < 0.1:
+        k = int(rng.integers(20, L - 20))
+        d = int(rng.integers(1, 4))
+        if rng.random() < 0.5:
+            s = np.concatenate([s[:k], s[k + d:]])
+        else:
+            s = np.concatenate([s[:k], rng.integers(0, 4, d)
+                                .astype(np.uint8), s[k:]])
+    s = s[:L]
+    m = rng.random(L) < 0.01
+    s[m] = (s[m] + rng.integers(1, 4, int(m.sum()))) % 4
+    return s
+
+
+def bait(s):
+    """Every 12th base changed: no exact run reaches the minimum seed
+    length (19), so seeding finds nothing and only mate rescue can place
+    the read (tests/test_pe_align.py's bait)."""
+    s = s.copy()
+    s[::12] = (s[::12] + 1) % 4
+    return s
+
+
+def sim_pairs(g, n_pairs, L, seed, mean=400, sd=40, baited=0.05):
+    """Pairs of L bp reads from fragments of normal length (mean, sd),
+    either end first (both strands), each end with sim_reads' errors; in
+    a `baited` share of the pairs one end is baited. Returns
+    [(name, r1, r2)]; the name carries the true leftmost positions of r1
+    and r2 and which end is baited (0: none, 1 or 2)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_pairs):
+        ins = max(int(rng.normal(mean, sd)), L)
+        p = int(rng.integers(0, len(g) - ins - 8))
+        q = p + ins - L
+        left = read_errors(rng, g[p:p + L + 8].copy(), L)
+        right = (3 - read_errors(rng, g[q:q + L + 8].copy(), L))[::-1]
+        ends, pos = [left, right], [p + 1, q + 1]
+        if rng.random() < 0.5:
+            ends, pos = ends[::-1], pos[::-1]
+        b = 0
+        if rng.random() < baited:
+            b = int(rng.integers(1, 3))
+            ends[b - 1] = bait(ends[b - 1])
+        out.append((f"p{i}_{pos[0]}_{pos[1]}_{b}", ends[0], ends[1]))
     return out
 
 
@@ -359,6 +414,7 @@ def phase_kernels(dev, rates):
 
     rows["chain_loop"] = kernels_chain(dev, rates)
     rows["pairhmm"] = kernels_pairhmm(dev, rates)
+    rows["kswv"] = kernels_kswv(dev, rates)
     return rows
 
 
@@ -465,7 +521,7 @@ def sass_row_instructions(kernel, K):
     step loop of chain_loop) at K columns or chain slots a lane
     (fgdp_tpu_torch.probes.sass), or None where cuobjdump is missing."""
     from fgdp_tpu_torch.probes import sass
-    row_loops = dict(sw_extend=sass.sw_row_loops,
+    row_loops = dict(sw_extend=sass.sw_row_loops, kswv=sass.kswv_row_loops,
                      pairhmm=sass.pairhmm_row_loops,
                      chain_loop=sass.chain_step_loops)[kernel]
     try:
@@ -620,6 +676,122 @@ def kernels_pairhmm(dev, rates):
     return row
 
 
+# D6's cases beyond the rescue jobs: the register path's lane edges (QP
+# with K = 1, 1, 1, 2, 5, 8 columns a lane), the wide path and a batch of
+# mostly empty jobs, on tests/test_torch_cuda.py's kswv_jobs
+KSWV_EDGE_QPS = (1, 31, 32, 33, 160, 256)
+KSWV_RESCUE_PAIRS = 512
+
+
+def rescue_jobs(g, n_pairs, opt):
+    """Mate-rescue jobs as pe_scale makes them: sim_pairs' pairs on a
+    400 kb stretch of the scale genome, the insert-size statistics from
+    their true inserts (align/pair.pestat), and for each pair the window
+    _matesw_window opens for the FR direction around the forward end,
+    with the other end as the query (every pair's mate is searched, as a
+    pair whose mate seeding missed is)."""
+    from fgdp_tpu_torch.align import pair
+    from fgdp_tpu_torch.index.reference import PackedReference
+
+    g = g[:400_000]
+    pref = PackedReference.from_contigs(["chr"], [g])
+    l_pac = pref.l_pac
+    pairs = sim_pairs(g, n_pairs, 151, seed=29, baited=0.0)
+    ends = []
+    for name, r1, r2 in pairs:
+        p1, p2 = (int(x) - 1 for x in name.split("_")[1:3])
+        # the forward end is the leftmost; the other end reads reverse
+        (fp, fr), (rp, rr) = sorted([(p1, r1), (p2, r2)],
+                                    key=lambda e: e[0])
+        ends.append((fp, rp, rr))
+    reg = lambda rb, rid=0: dict(rid=rid, rb=rb, qb=0, qe=151, score=151,
+                                 is_alt=False)
+    pes = pair.pestat(opt, l_pac, [([reg(fp)], [reg(2 * l_pac - rp - 151)])
+                                   for fp, rp, _ in ends])
+    jobs = []
+    for fp, _, rr in ends:
+        w = pair._matesw_window(opt, pref, pes, reg(fp), rr, 1)
+        if w is not None:
+            jobs.append((w[0], w[1]))
+    return jobs, pes[1]
+
+
+def kernels_kswv(dev, rates):
+    """D6 against its plain version, all four outputs exactly equal: on
+    rescue jobs made as pe_scale makes them (packed and bucketed as
+    ksw_align_local_batch packs them; the timed case), at the register
+    path's lane edges, on the wide path and on a mostly empty batch.
+    Kernel ms from the events the C entry point records around each
+    launch. Returns the rescue case's row."""
+    import torch
+    from fgdp_tpu_torch.config import AlignConfig
+    from fgdp_tpu_torch.ops import kswv
+    from fgdp_tpu_torch.probes import KSWV_OPS_PER_CELL, wall_ms
+
+    opt = AlignConfig()
+    pen = dict(a=opt.a, b=opt.b, o_del=opt.o_del, e_del=opt.e_del,
+               o_ins=opt.o_ins, e_ins=opt.e_ins)
+    kswv_jobs = load_file("tests/test_torch_cuda.py").kswv_jobs
+
+    def check(label, arrays):
+        args = [torch.as_tensor(a, device=dev) for a in arrays]
+        run = lambda: kswv.kswv_forward_kernel(*args, **pen)
+        p0 = dict(kswv.PATH_LAUNCHES)
+        got = run()
+        path = [p for p in p0 if kswv.PATH_LAUNCHES[p] > p0[p]]
+        plain_ms, want = wall_ms(lambda: kswv.kswv_forward_plain(*args,
+                                                                 **pen))
+        err = max_abs_err(got, want)
+        if err != 0:
+            raise AssertionError(f"kswv {label} differs from its plain "
+                                 f"version (max abs err {err})")
+        return run, path, plain_ms, got
+
+    jobs, fr = rescue_jobs(gen_genome(4_600_000, seed=0),
+                           KSWV_RESCUE_PAIRS, opt)
+    q, t, qlen, tlen = kswv._pack(jobs)
+    run, path, plain_ms, got = check("rescue", (q, qlen, t, tlen))
+    ms = timed_ms("kswv", run)
+    J, QP = q.shape
+    TP = t.shape[1]
+    cells = int(np.dot(qlen.astype(np.int64), tlen))
+    rows_run = int(np.minimum(tlen, TP).sum())
+    nbytes = 4 * (q.size + t.size + 2 * J) + 4 * (2 * J + J * QP + J * TP)
+    b_ms, b_by = bound(nbytes, cells * KSWV_OPS_PER_CELL, rates["int32"])
+    K = -(-QP // 32)
+    hits = int((got[0] >= opt.min_seed_len * opt.a).sum())
+    log(f"[kswv] rescue jobs: {len(jobs)} of {KSWV_RESCUE_PAIRS} pairs "
+        f"(FR window {fr.low}-{fr.high} from the true inserts), J={J} "
+        f"QP={QP} TP={TP} (K={K}), {path} path: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms, cells {cells}, warp rows {rows_run}, "
+        f"{cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.5f} ms ({b_by}); "
+        f"{hits} jobs score >= {opt.min_seed_len * opt.a}; equal: True")
+    n = sass_row_instructions("kswv", K)
+    if n:
+        log(f"[kswv] rescue: {KSWV_OPS_PER_CELL} counted int32 operations "
+            f"a cell = {KSWV_OPS_PER_CELL / 32:.2f} warp instructions a "
+            f"cell at 32 lanes; the row loop issues "
+            f"{n * rows_run / cells:.2f} a cell ({rows_run} warp rows of "
+            f"{32 * K} lane columns, {cells / rows_run:.1f} cells each); "
+            f"issuing them alone takes "
+            f"{1e3 * n * rows_run / rates['issue']:.4f} ms")
+    for QP in KSWV_EDGE_QPS:
+        _, path, _, _ = check(f"QP={QP}", kswv_jobs(QP, 256, QP, 512))
+        log(f"[kswv] QP={QP} (K={-(-QP // 32)}), 256 jobs: {path} path, "
+            "equal: True")
+    _, path, _, _ = check("wide", kswv_jobs(400, 256, 400, 512))
+    log(f"[kswv] wide QP=400: {path} path, equal: True")
+    if path != ["wide"]:
+        raise AssertionError("kswv at QP 400 did not take the wide path")
+    _, path, _, got = check("empty", kswv_jobs(3, 1024, 160, 512,
+                                               empty=0.9))
+    log(f"[kswv] mostly empty batch, 1024 jobs (90% empty): {path} path, "
+        f"{int((got[1] >= 0).sum())} jobs with a positive best, equal: "
+        "True")
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
 def _index_sam(lines):
     out = {}
     for ln in lines:
@@ -633,9 +805,10 @@ def _index_sam(lines):
     return out
 
 
-def _compare(ref_lines, our_lines, min_core, min_full):
+def _compare(ref_lines, our_lines, min_core, min_full, cols=slice(1, 6)):
     """tests/test_golden.py's field compare: CORE fields (FLAG RNAME POS
-    MAPQ CIGAR) and the NM/MD/AS/XS tags, with the same minimum counts."""
+    MAPQ CIGAR; with `cols` PAIR_COLS, also RNEXT PNEXT TLEN) and the
+    NM/MD/AS/XS tags, with the same minimum counts."""
     ref, ours = _index_sam(ref_lines), _index_sam(our_lines)
     if len(ours) != len(ref):
         raise AssertionError(f"{len(ours)} primary records, oracle has "
@@ -645,7 +818,7 @@ def _compare(ref_lines, our_lines, min_core, min_full):
         of = ours.get(key)
         if of is None:
             raise AssertionError(f"read {key} missing")
-        c = rf[1:6] == of[1:6]
+        c = rf[cols] == of[cols]
         tr = {x.split(":")[0]: x for x in rf[11:]}
         to = {x.split(":")[0]: x for x in of[11:]}
         core += c
@@ -658,20 +831,27 @@ def _compare(ref_lines, our_lines, min_core, min_full):
 
 
 def phase_golden(tmp):
+    """The single-end fixtures on CORE fields; the pairs on PAIR_COLS
+    (tests/test_golden.py:test_golden_paired_end)."""
     from fgdp_tpu_torch import cli
-    for ref, fq, oracle, mc, mf in (
-            ("ref.fa", "se.fq", "se.oracle.sam", 150, 150),
-            ("rep_ref.fa", "rep.fq", "rep.oracle.sam", 80, 79)):
+    for ref, fqs, oracle, mc, mf, cols in (
+            ("ref.fa", ["se.fq"], "se.oracle.sam", 150, 150, slice(1, 6)),
+            ("rep_ref.fa", ["rep.fq"], "rep.oracle.sam", 80, 79,
+             slice(1, 6)),
+            ("ref.fa", ["pe1.fq", "pe2.fq"], "pe.oracle.sam", 200, 200,
+             slice(1, 10))):
         prefix = os.path.join(tmp, ref + ".idx")
-        out = os.path.join(tmp, fq + ".sam")
+        out = os.path.join(tmp, fqs[0] + ".sam")
         cli.main(["index", os.path.join(GOLDEN, ref), prefix])
-        cli.main(["mem", prefix, os.path.join(GOLDEN, fq), "-o", out])
+        cli.main(["mem", prefix, *(os.path.join(GOLDEN, f) for f in fqs),
+                  "-o", out])
         with open(out) as f:
             ours = f.read().splitlines()
         with open(os.path.join(GOLDEN, oracle)) as f:
-            core, full = _compare(f.read().splitlines(), ours, mc, mf)
-        log(f"[golden] {fq}: core fields {core}, with tags {full} "
-            f"(need {mc}/{mf}) ok")
+            core, full = _compare(f.read().splitlines(), ours, mc, mf,
+                                  cols)
+        log(f"[golden] {' '.join(fqs)}: fields {cols.start}-{cols.stop} "
+            f"{core}, with tags {full} (need {mc}/{mf}) ok")
 
 
 def _load_fastq(path):
@@ -1385,10 +1565,168 @@ def phase_pipeline_scale(dev, tmp, ctx, batch, n_dups):
             raise AssertionError(f"kernel {k} never launched in pipeline")
 
 
+def write_pair_fastqs(tmp, pairs):
+    """r1.fq and r2.fq of sim_pairs' pairs (both ends under the pair's
+    name, quality I)."""
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    paths = [os.path.join(tmp, f"pe_r{k}.fq") for k in (1, 2)]
+    with open(paths[0], "w") as f1, open(paths[1], "w") as f2:
+        for name, r1, r2 in pairs:
+            for f, r in ((f1, r1), (f2, r2)):
+                f.write(f"@{name}\n{lut[r].tobytes().decode()}\n+\n"
+                        f"{'I' * len(r)}\n")
+    return paths
+
+
+def pe_placement(lines, n_pairs):
+    """Primary records of a PE SAM: (properly paired share, confident
+    ends at their true position share, bait ends at their true position
+    share and count). An end is at its true position within 10 bp."""
+    prim = [ln.split("\t") for ln in lines
+            if ln and not ln.startswith("@")
+            and not int(ln.split("\t")[1]) & 0x900]
+    if len(prim) != 2 * n_pairs:
+        raise AssertionError(f"{len(prim)} primary records for {n_pairs} "
+                             "pairs")
+    proper = conf = right = bait_n = bait_right = 0
+    for f in prim:
+        flag = int(f[1])
+        _, p1, p2, b = f[0].split("_")
+        end = 1 if flag & 0x40 else 2
+        truth = int(p1 if end == 1 else p2)
+        here = not flag & 4 and abs(int(f[3]) - truth) <= 10
+        proper += bool(flag & 2)
+        if not flag & 4 and int(f[4]) >= 20:
+            conf += 1
+            right += here
+        if int(b) == end:
+            bait_n += 1
+            bait_right += here
+    return (proper / len(prim), right / max(conf, 1), conf,
+            bait_right / max(bait_n, 1), bait_n)
+
+
+def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
+    """BASELINE config 2's class (paired-end 150 bp reads, one card) on
+    the scale phase's 4.6 Mb index: sim_pairs' pairs (seed 31) through
+    `mem` in-process, then `pipeline -t min(cpu-1, 8)`, whose workers
+    rescue mates on the card; then the first 256 pairs on the card and on
+    the CPU. Returns the in-process run's launches."""
+    import torch
+    from fgdp_tpu_torch import cli
+    from fgdp_tpu_torch.io import bam as bamio
+    from fgdp_tpu_torch.ops import kernels, kswv
+    from fgdp_tpu_torch.pipeline_stream import POOL_KSWV, stream_mem
+    from fgdp_tpu_torch.utils.profiling import PROF, WORKER_SAM
+
+    t0 = time.time()
+    pairs = sim_pairs(gen_genome(4_600_000, seed=0), n_pairs, 151, seed=31)
+    fqs = write_pair_fastqs(tmp, pairs)
+    log(f"[pe_scale] data: {n_pairs} pairs of 2 x 151 bp, insert "
+        f"N(400, 40), {sum(p[0][-1] != '0' for p in pairs)} pairs with a "
+        f"baited end, made in {time.time() - t0:.1f} s")
+
+    aligner = ctx["aligner"]
+    aligner.stage_ms = {}
+    aligner.esc_stage_ms = {}
+    esc0 = aligner.esc_reads
+    fin0 = PROF.acc.get(WORKER_SAM, 0.0)
+    lines = []
+    w0 = dict(kswv.WORK)
+    kernels.reset_launches()
+    kernels.TIMED["kswv"] = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        n = stream_mem(aligner, cli.read_batches(fqs, batch), lines.append,
+                       paired=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        k_ms = sum(a.elapsed_time(b) for a, b in kernels.TIMED["kswv"])
+    finally:
+        kernels.TIMED.pop("kswv", None)
+    launches = {k: kernels.LAUNCHES[k] for k in PE_KERNELS}
+    jobs, cells = (kswv.WORK[k] - w0[k] for k in ("jobs", "cells"))
+    proper, right, conf, bait_right, bait_n = pe_placement(lines, n_pairs)
+    log(f"[pe_scale] mem: {n_pairs} pairs ({n} reads) in {wall:.2f} s = "
+        f"{n_pairs / wall:.1f} pairs/s, {n / wall:.1f} reads/s end to end "
+        f"(batch {batch} reads); launches {launches}")
+    n_batches = -(-n // batch)
+    log(f"[pe_scale] per batch ms: "
+        f"{json.dumps({k: round(v / n_batches, 3) for k, v in aligner.stage_ms.items()})}"
+        f"; host finalize (rescue and pairing included) "
+        f"{1e3 * (PROF.acc.get(WORKER_SAM, 0.0) - fin0) / n_batches:.1f}; "
+        f"escalated stage ms total "
+        f"{json.dumps({k: round(v, 1) for k, v in aligner.esc_stage_ms.items()})}"
+        f"; escalated reads {aligner.esc_reads - esc0}")
+    log(f"[pe_scale] kswv (D6) on the mem path: {launches['kswv']} "
+        f"launches, {jobs} jobs, {cells} cells, {k_ms:.3f} ms of kernel "
+        f"time (CUDA events its C entry point records around each launch)"
+        f" = {100 * k_ms / (1e3 * wall):.4f}% of the wall")
+    log(f"[pe_scale] properly paired {proper:.4f}; MAPQ>=20 ends {conf}, "
+        f"of which at the true position {right:.4f}; bait ends at their "
+        f"true position {bait_right:.4f} of {bait_n}")
+    if right < 0.95:
+        raise AssertionError("pe_scale placed too few confident ends "
+                             "correctly")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched on the "
+                                 "paired-end mem path")
+
+    workers = min((os.cpu_count() or 2) - 1, 8)
+    out = os.path.join(tmp, "pe_pipeline.bam")
+    p0 = dict(POOL_KSWV)
+    w_acc = {k: PROF.acc.get(k, 0.0) for k in ("POOL_WAIT", "SORT_FINISH")}
+    kernels.reset_launches()
+    t0 = time.time()
+    n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], *fqs, "-O", out,
+                              "-t", str(workers), "-b", str(batch)])
+    wall = time.time() - t0
+    pool = {k: POOL_KSWV[k] - p0[k] for k in POOL_KSWV}
+    waits = {k: round(PROF.acc.get(k, 0.0) - w_acc[k], 2) for k in w_acc}
+    log(f"[pe_scale] pipeline: {n_pairs} pairs -> {nrec} records, {ndup} "
+        f"duplicates in {wall:.2f} s = {n_pairs / wall:.1f} pairs/s, "
+        f"{n / wall:.1f} reads/s end to end ({workers} finalize workers on "
+        f"the card); aligner launches "
+        f"{ {k: kernels.LAUNCHES[k] for k in MEM_KERNELS} }; s "
+        f"{json.dumps(waits)}")
+    log(f"[pe_scale] kswv in the workers: {pool['launches']} launches, "
+        f"{pool['jobs']} jobs, {pool['cells']} cells, {pool['ms']:.3f} ms "
+        "of kernel time (events each worker's launches record)")
+    _, _, _, got = bamio.read_bam(out)
+    keys = [(r["rid"] if r["rid"] >= 0 else 1 << 30, r["pos"]) for r in got]
+    n_sam = sum(1 for ln in lines if ln and not ln.startswith("@"))
+    log(f"[pe_scale] BAM: {len(got)} records (mem SAM {n_sam}), in "
+        f"coordinate order: {keys == sorted(keys)}")
+    if len(got) != nrec or nrec != n_sam or keys != sorted(keys):
+        raise AssertionError("pe_scale BAM unlike the mem run or out of "
+                             "order")
+    if pool["launches"] <= 0:
+        raise AssertionError("kswv never launched in the pipeline's "
+                             "workers")
+
+    # the first 256 pairs, one batch, on the card and on the CPU
+    names = [x for p in pairs[:256] for x in (p[0], p[0])]
+    seqs = [x.astype(np.int64) for p in pairs[:256] for x in p[1:]]
+    quals = ["I" * 151] * len(seqs)
+    t0 = time.time()
+    card = aligner.align_pairs(names, seqs, quals)
+    cpu_al = cli.load_aligner(ctx["prefix"], batch, device="cpu")
+    cpu = cpu_al.align_pairs(names, seqs, quals)
+    log(f"[pe_scale] first 256 pairs: card SAM equal to the CPU's: "
+        f"{card == cpu} ({len(card)} lines, {time.time() - t0:.1f} s)")
+    if card != cpu:
+        raise AssertionError("the card's SAM of the first 256 pairs "
+                             "differs from the CPU run")
+    return launches
+
+
 PHASES = ("probes", "kernels", "golden", "ladder", "scale",
           "mutect_golden", "mutect_scale", "sormadup_scale",
-          "pipeline_scale")
+          "pipeline_scale", "pe_scale")
 SCALE_READS = 16_384
+PE_PAIRS = 8_192
 PIPELINE_DUPS = 1_638
 SORMADUP_RECORDS = 1_000_000
 
@@ -1433,7 +1771,7 @@ def main(argv=None):
             phase_golden(tmp)
         if "ladder" in phases:
             phase_ladder(dev)
-        if "scale" in phases or "pipeline_scale" in phases:
+        if phases & {"scale", "pipeline_scale", "pe_scale"}:
             mem_launches, ctx = phase_scale(dev, tmp, genome_bp=4_600_000,
                                             n_reads=SCALE_READS, batch=4096)
             launches.update(mem_launches)
@@ -1445,6 +1783,9 @@ def main(argv=None):
             phase_sormadup_scale(tmp, SORMADUP_RECORDS)
         if "pipeline_scale" in phases:
             phase_pipeline_scale(dev, tmp, ctx, 4096, PIPELINE_DUPS)
+        if "pe_scale" in phases:
+            launches["kswv"] = phase_pe_scale(dev, tmp, ctx, PE_PAIRS,
+                                              4096)["kswv"]
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed in "
             f"{time.time() - t_start:.1f} s (partial run: no result)")
@@ -1457,6 +1798,8 @@ def main(argv=None):
                        "fgdp_tpu/ops/chain_pallas.py:40"),
         "pairhmm": ("cuda", "fgdp_tpu_torch/csrc/pairhmm.cu",
                     "fgdp_tpu/ops/pairhmm_pallas.py:34"),
+        "kswv": ("cuda", "fgdp_tpu_torch/csrc/kswv.cu",
+                 "fgdp_tpu/ops/kswv.py:40 (D6, lax.fori_loop)"),
         "vpu_ceiling": ("cuda", "fgdp_tpu_torch/csrc/vpu_ceiling.cu",
                         "scripts/bench_vpu_ceiling.py:44"),
         "gather_rows": ("cuda", "fgdp_tpu_torch/csrc/gather_rows.cu",

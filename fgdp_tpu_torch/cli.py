@@ -1,13 +1,14 @@
 """Command-line interface of the port.
 
   python -m fgdp_tpu_torch index  <ref.fa> <out_prefix>   (bwa-mem2 index)
-  python -m fgdp_tpu_torch mem    <prefix> <reads.fq> ... (bwa-mem2 mem,
-                                                          single-end)
+  python -m fgdp_tpu_torch mem    <prefix> <r1.fq> [r2.fq] (bwa-mem2 mem;
+                                                          two FASTQs:
+                                                          paired-end)
   python -m fgdp_tpu_torch sormadup <in.sam> <out.bam>    (sormadup)
   python -m fgdp_tpu_torch mutect -R ref.fa -I tumor.bam [-N normal.bam]
                                   -O out.vcf              (Mutect2 +
                                                           FilterMutectCalls)
-  python -m fgdp_tpu_torch pipeline <prefix> <reads.fq> -O out.bam
+  python -m fgdp_tpu_torch pipeline <prefix> <r1.fq> [r2.fq] -O out.bam
                                   [-t N] [--vcf out.vcf -R ref.fa
                                   [-N normal.bam]]        (all three,
                                                           stages overlapped)
@@ -110,19 +111,26 @@ def load_aligner(prefix, batch, opt=None, device=None):
 
 
 def read_batches(paths, batch):
+    """(names, seqs, quals) batches of `batch` reads from one FASTQ, or
+    of batch // 2 pairs from two, interleaved [r1_0, r2_0, r1_1, ...]: a
+    batch never splits a pair (the insert-size stats are per batch)."""
     from .io.fastq import parse_fastq_records
     from .utils import dna
 
-    it = parse_fastq_records(paths[0])
+    if len(paths) not in (1, 2):
+        raise SystemExit(f"expected one FASTQ (single-end) or two "
+                         f"(paired-end), got {len(paths)}")
+    its = [parse_fastq_records(p) for p in paths]
     while True:
         names, seqs, quals = [], [], []
-        for _ in range(batch):
-            r = next(it, None)
-            if r is None:
+        for _ in range(batch // len(its)):
+            recs = [next(it, None) for it in its]
+            if recs[0] is None:
                 break
-            names.append(r[0])
-            seqs.append(dna.encode(r[2]).astype(np.int64))
-            quals.append(r[3].decode() if r[3] else None)
+            for r in recs:
+                names.append(r[0])
+                seqs.append(dna.encode(r[2]).astype(np.int64))
+                quals.append(r[3].decode() if r[3] else None)
         if not names:
             return
         yield names, seqs, quals
@@ -140,17 +148,10 @@ def _timed_batches(paths, batch):
         yield b
 
 
-def _single_end(cmd, reads):
-    if len(reads) != 1:
-        raise SystemExit(f"{cmd}: the port aligns single-end reads only "
-                         "(one FASTQ)")
-
-
 def cmd_mem(args):
     from .pipeline_stream import stream_mem
     from .utils.profiling import PROF, SAM_IO
 
-    _single_end("mem", args.reads)
     aligner = load_aligner(args.prefix, args.batch, opt=_mem_opt(args),
                            device=args.device)
     out = open(args.output, "w") if args.output else sys.stdout
@@ -168,21 +169,31 @@ def cmd_mem(args):
             print(f"[mem] {n} reads, {n/dt:.0f} reads/s", file=sys.stderr)
 
         batches = _timed_batches(args.reads, args.batch)
+        paired = len(args.reads) == 2
         if args.finalize_workers > 0:
-            from .pipeline_stream import FinalizePool, stream_mem_pooled
-            pool = FinalizePool(args.prefix + ".ref", aligner.opt,
-                                args.finalize_workers)
+            from .pipeline_stream import stream_mem_pooled
+            pool = _finalize_pool(args, aligner, paired)
             try:
                 n = stream_mem_pooled(aligner, batches, write_line, pool,
-                                      progress=progress)
+                                      paired=paired, progress=progress)
             finally:
                 pool.shutdown()
         else:
-            n = stream_mem(aligner, batches, write_line, progress=progress)
+            n = stream_mem(aligner, batches, write_line, paired=paired,
+                           progress=progress)
     finally:
         if args.output:
             out.close()
     PROF.display_stats(units=n, unit_name="reads")
+
+
+def _finalize_pool(args, aligner, paired):
+    """The -t worker pool; a paired-end pool rescues mates on the
+    aligner's device."""
+    from .pipeline_stream import FinalizePool
+    return FinalizePool(args.prefix + ".ref", aligner.opt,
+                        args.finalize_workers,
+                        device=aligner.device if paired else None)
 
 
 def cmd_sormadup(args):
@@ -343,7 +354,6 @@ def cmd_pipeline(args):
     from .pipeline_stream import stream_fastq_to_bam
     from .utils.profiling import PROF
 
-    _single_end("pipeline", args.reads)
     if args.vcf and not args.reference:
         raise SystemExit("pipeline: --vcf needs -R ref.fa")
     aligner = load_aligner(args.prefix, args.batch, device=args.device)
@@ -354,16 +364,15 @@ def cmd_pipeline(args):
         print(f"[pipeline] {n} reads aligned, {n/dt:.0f} reads/s",
               file=sys.stderr)
 
+    paired = len(args.reads) == 2
     pool = None
     if args.finalize_workers > 0:
-        from .pipeline_stream import FinalizePool
-        pool = FinalizePool(args.prefix + ".ref", aligner.opt,
-                            args.finalize_workers)
+        pool = _finalize_pool(args, aligner, paired)
     try:
         n, (nrec, ndup) = stream_fastq_to_bam(
             aligner, _timed_batches(args.reads, args.batch), args.output,
-            compress_level=args.compress_level, progress=progress,
-            pool=pool)
+            paired=paired, compress_level=args.compress_level,
+            progress=progress, pool=pool)
     finally:
         if pool is not None:
             pool.shutdown()

@@ -1,8 +1,9 @@
 // Host twin of the CUDA kernels, for the CPU tests only: g++ builds the
-// kernels' own per-job (sw_extend.cuh), per-read (chain_loop.cuh),
-// per-pair (pairhmm.cuh) and per-element (vpu_ceiling.cuh) logic into a
-// plain C library, run with one serial lane (the register paths of the
-// chain loop and PairHMM with 32 lanes in lockstep), so the logic can be
+// kernels' own per-job (sw_extend.cuh, kswv.cuh), per-read
+// (chain_loop.cuh), per-pair (pairhmm.cuh) and per-element
+// (vpu_ceiling.cuh) logic into a plain C library, run with one serial
+// lane (the register paths of the chain loop, kswv and PairHMM with 32
+// lanes in lockstep), so the logic can be
 // held against the plain PyTorch versions where there is no nvcc. It
 // builds with -ffp-contract=off, so that no multiply and add fuse into
 // one rounding, as on the card. The port's CPU path never calls it; it
@@ -117,6 +118,12 @@ struct HostWarp {
     return r;
   }
   int shfl(const I& v, int src) const { return v.v[src]; }
+  // v of lane - d (a lane below d keeps its own v)
+  I shfl_up(const I& v, int d) const {
+    I r;
+    for (int i = 0; i < 32; ++i) r.v[i] = v.v[i >= d ? i - d : i];
+    return r;
+  }
   int max(const I& v) const {
     int m = v.v[0];
     for (int i = 1; i < 32; ++i) m = v.v[i] > m ? v.v[i] : m;
@@ -131,6 +138,7 @@ struct HostWarp {
 };
 
 #include "chain_loop.cuh"
+#include "kswv.cuh"
 #include "pairhmm.cuh"
 #include "sw_extend.cuh"
 #include "vpu_ceiling.cuh"
@@ -169,6 +177,59 @@ extern "C" int fgdp_sw_extend_host(const int* query, const int* target,
     for (int k = 0; k < 6; ++k) out[(long long)k * J + j] = res[k];
     if (cells) cells[j] = c;
   }
+  return 0;
+}
+
+extern "C" int fgdp_kswv_reg_max_qp() { return 32 * KSWV_MAX_K; }
+
+template <int K>
+static void kswv_regs_host(const int* q, const int* t, const int* qlen,
+                           const int* tlen, int J, int QP, int TP,
+                           const KswvParams& p, int* best, int* te,
+                           int* best_row, int* row_max) {
+  HostWarp L;
+  for (int j = 0; j < J; ++j)
+    kswv_job_regs<K>(q + (long long)j * QP, t + (long long)j * TP, QP, TP,
+                     qlen[j], tlen[j], p, L, best_row + (long long)j * QP,
+                     row_max + (long long)j * TP, best[j], te[j]);
+}
+
+// The kswv register path with 32 lockstep lanes, K = ceil(QP / 32) as on
+// the card; returns 1 for QP above fgdp_kswv_reg_max_qp().
+extern "C" int fgdp_kswv_host(const int* q, const int* t, const int* qlen,
+                              const int* tlen, int J, int QP, int TP, int a,
+                              int b, int o_del, int e_del, int o_ins,
+                              int e_ins, int* best, int* te, int* best_row,
+                              int* row_max) {
+  static_assert(KSWV_MAX_K == 8, "instantiate every K up to KSWV_MAX_K");
+  const KswvParams p{a, b, o_del, e_del, o_ins, e_ins};
+#define KSWV_HOST(k)                                                   \
+  case k:                                                              \
+    kswv_regs_host<k>(q, t, qlen, tlen, J, QP, TP, p, best, te, best_row, \
+                      row_max);                                        \
+    return 0;
+  switch (QP > 0 ? (QP + 31) / 32 : 1) {
+    KSWV_HOST(1) KSWV_HOST(2) KSWV_HOST(3) KSWV_HOST(4)
+    KSWV_HOST(5) KSWV_HOST(6) KSWV_HOST(7) KSWV_HOST(8)
+  }
+#undef KSWV_HOST
+  return 1;
+}
+
+// The kswv wide path with one serial lane, any QP.
+extern "C" int fgdp_kswv_wide_host(const int* q, const int* t,
+                                   const int* qlen, const int* tlen, int J,
+                                   int QP, int TP, int a, int b, int o_del,
+                                   int e_del, int o_ins, int e_ins, int* best,
+                                   int* te, int* best_row, int* row_max) {
+  const KswvParams p{a, b, o_del, e_del, o_ins, e_ins};
+  std::vector<int> scratch(2 * (size_t)QP + 1);
+  SerialLanes L;
+  for (int j = 0; j < J; ++j)
+    kswv_job_wide(q + (long long)j * QP, t + (long long)j * TP, QP, TP,
+                  qlen[j], tlen[j], p, L, scratch.data(),
+                  scratch.data() + QP, best_row + (long long)j * QP,
+                  row_max + (long long)j * TP, best[j], te[j]);
   return 0;
 }
 

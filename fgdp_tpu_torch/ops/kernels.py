@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, pairhmm.cu,
-and the probes' vpu_ceiling.cu and gather_rows.cu) is compiled by nvcc for sm_90a into its own shared library with a plain C
+Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, kswv.cu,
+pairhmm.cu, and the probes' vpu_ceiling.cu and gather_rows.cu) is compiled by nvcc for sm_90a into its own shared library with a plain C
 interface under build/fgdp_tpu_torch/ at the repository root, and bound
 with ctypes. The build happens at first use (one nvcc per source, all started
 together) and again whenever a source is newer than its library.
@@ -11,8 +11,8 @@ cudaGetLastError(); `check` raises when that is not 0.
 
 build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
-or 32 lanes in lockstep for the chain loop's and PairHMM's register
-paths), which the CPU tests hold against the plain PyTorch versions. The
+or 32 lanes in lockstep for the register paths of the chain loop, kswv
+and PairHMM), which the CPU tests hold against the plain PyTorch versions. The
 port never runs it.
 """
 
@@ -29,7 +29,7 @@ import time
 from ..io.native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-KERNELS = ("chain_loop", "gather_rows", "pairhmm", "sw_extend",
+KERNELS = ("chain_loop", "gather_rows", "kswv", "pairhmm", "sw_extend",
            "vpu_ceiling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +44,10 @@ _SIGS = {
     "fgdp_chain_loop_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "fgdp_chain_loop_wide_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "fgdp_chain_reg_max_c": [],
+    "fgdp_kswv": [_P] * 4 + [_I] * 9 + [_P] * 6 + [_P] * 3,
+    "fgdp_kswv_host": [_P] * 4 + [_I] * 9 + [_P] * 4,
+    "fgdp_kswv_wide_host": [_P] * 4 + [_I] * 9 + [_P] * 4,
+    "fgdp_kswv_reg_max_qp": [],
     "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
     "fgdp_pairhmm_f32": [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P],
     "fgdp_pairhmm_f32_host": [_P] * 6 + [_I] * 4 + [_P],
@@ -64,7 +68,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA event pairs (start, end) around each launch of a kernel, recorded
 # only while a caller has put a list under its name (the smoke run's
 # scale phases sum them into the kernel's time on the main path). The C
-# entry points of SW, the chain loop and PairHMM record the pair
+# entry points of SW, the chain loop, kswv and PairHMM record the pair
 # themselves, right around the launch, so no host time falls between the
 # two events.
 TIMED: dict = {}

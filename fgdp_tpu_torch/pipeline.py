@@ -8,7 +8,9 @@ marking, CIGAR and SAM text — mirroring the reference's worker split
 (worker_bwt/worker_aln on compute threads, worker_sam on output,
 src/bwamem.cpp:1800-1850) with the device as the compute side.
 
-Port of the JAX package's pipeline.py for single-end reads. Escalated
+Port of the JAX package's pipeline.py, single- and paired-end: a
+paired batch's mate rescue runs on the aligner's device through the
+kswv kernel (align/pair.rescue_all, ops/kswv.py). Escalated
 rungs of the overflow ladder run on the same device through the same
 kernels; the JAX package's defences against JAX and relay faults (salt
 re-jit, relay-loss and transient retries, CPU-routed escalation and its
@@ -26,6 +28,7 @@ import torch
 from .align import chain as chainmod
 from .align import extend as extendmod
 from .align import finalize
+from .align import pair as pairmod
 from .align.seeding import collect_seeds, compact_order
 from .config import AlignConfig, BatchShapes
 from .index.fmindex import FMIndex
@@ -226,7 +229,7 @@ def device_align_packed(dfm, dref, codes, lens, active, opt, shapes,
 
 
 class Aligner:
-    """End-to-end single-end aligner over one reference.
+    """End-to-end single- and paired-end aligner over one reference.
 
     device=None runs on the CUDA card and raises without one; pass
     device="cpu" to run on the CPU. `stage_ms` / `esc_stage_ms`, when
@@ -281,6 +284,14 @@ class Aligner:
         arrays (0..4). Returns SAM lines (one or more per read)."""
         regs_np = self._device_regs(seq_codes)
         return self.finalize_batch(names, seq_codes, quals, regs_np, id0)
+
+    def align_pairs(self, names, seq_codes, quals=None, id0: int = 0):
+        """Paired-end alignment. seq_codes interleaved [r1_0, r2_0, r1_1,
+        ...] (reference worker layout, bseq 2i/2i+1). Returns SAM lines."""
+        assert len(seq_codes) % 2 == 0
+        regs_np = self._device_regs(seq_codes)
+        return self.finalize_batch(names, seq_codes, quals, regs_np, id0,
+                                   paired=True)
 
     def _run(self, shapes, codes, lens, active, stage_ms):
         """One device program run -> packed reg buffer on the device."""
@@ -444,11 +455,17 @@ class Aligner:
         regs = self._device_regs_async(seq_codes)
         return self._regs_to_np(regs, seq_codes)
 
-    def finalize_batch(self, names, seq_codes, quals, regs_np, id0):
-        """Host finalize of one batch's device regs -> SAM lines."""
+    def finalize_batch(self, names, seq_codes, quals, regs_np, id0,
+                       paired=False):
+        """Host finalize of one batch's device regs -> SAM lines (a
+        paired batch's mate rescue on the aligner's device)."""
         from .utils.profiling import PROF, WORKER_SAM
 
         with PROF.phase(WORKER_SAM):
+            if paired:
+                return finalize_pe_batch(self.pref, self.opt, names,
+                                         seq_codes, quals, regs_np, id0,
+                                         self.device)
             return finalize_se_batch(self.pref, self.opt, self.shapes,
                                      names, seq_codes, quals, regs_np,
                                      id0)
@@ -484,6 +501,76 @@ def finalize_se_batch(pref, opt, shapes, names, seq_codes, quals, regs_np,
         out.extend(finalize.reg2sam(
             pref, opt, names[b], np.asarray(seq_codes[b], np.int64),
             qual, rl, int(ids[b]), alns_by_k=aln_maps[b]))
+    return out
+
+
+def finalize_pe_batch(pref, opt, names, seq_codes, quals, regs_np, id0,
+                      device):
+    """Finalize for a paired-end batch (insert-size inference + mate
+    rescue on `device` + pairing + SAM); module-level for worker
+    processes. seq_codes are interleaved [r1_0, r2_0, ...]; id0 counts
+    PAIRS."""
+    B = len(seq_codes)
+    reg_lists = _reg_lists_np(pref, opt, seq_codes, regs_np)
+    reg_pairs = [(reg_lists[2 * i], reg_lists[2 * i + 1])
+                 for i in range(B // 2)]
+    pes = pairmod.pestat(opt, pref.l_pac, reg_pairs)
+    codes_pairs = [(np.asarray(seq_codes[2 * i], np.int64),
+                    np.asarray(seq_codes[2 * i + 1], np.int64))
+                   for i in range(B // 2)]
+    # batched mate rescue (kswv analogue) across the whole batch
+    pairmod.rescue_all(opt, pref, pes, reg_pairs, codes_pairs,
+                       device=device)
+    # plan every pair first, then ONE batched reg2aln DP over all
+    # selected regs (the SE path's batching; the scalar per-reg DP
+    # measured 5.8 s of a 4096-read batch = ~85% of PE finalize)
+    plans = [pairmod.sam_pe_plan(opt, pref, pes, id0 + i,
+                                 list(reg_pairs[i]))
+             for i in range(B // 2)]
+    jobs, jkeys = [], {}
+    for i, plan in enumerate(plans):
+        a = reg_pairs[i]
+        if plan["mode"] == "paired":
+            want = [(e, plan["z"][e]) for e in (0, 1)]
+        else:
+            want = [(e, plan["which"][e]) for e in (0, 1)
+                    if plan["which"][e] is not None]
+            want += [(e, k) for e in (0, 1)
+                     for k in finalize.selected_regs(opt, a[e])]
+        for e, k in want:
+            if (i, e, k) not in jkeys:
+                jkeys[(i, e, k)] = len(jobs)
+                jobs.append((codes_pairs[i][e], a[e][k]))
+    alns = finalize.reg2aln_batch(pref, opt, jobs) if jobs else []
+    per_pair = {}
+    for (i, e, k), j in jkeys.items():
+        per_pair.setdefault(i, ({}, {}))[e][k] = j
+    out = []
+    for i, plan in enumerate(plans):
+        a = reg_pairs[i]
+        pj = per_pair.get(i, ({}, {}))
+
+        def aln_of(e, k, i=i, pj=pj):
+            if k is None:
+                return finalize.reg2aln(pref, opt, codes_pairs[i][e],
+                                        None)
+            j = pj[e].get(k)
+            # reg2aln mutates nothing, but aln dicts are mutated by the
+            # emitters (flags/mapq/xa) — hand each consumer a copy
+            return dict(alns[j]) if j is not None else finalize.reg2aln(
+                pref, opt, codes_pairs[i][e], a[e][k])
+
+        maps = ({k: dict(alns[j]) for k, j in pj[0].items()},
+                {k: dict(alns[j]) for k, j in pj[1].items()})
+        q1 = quals[2 * i] if quals else None
+        q2 = quals[2 * i + 1] if quals else None
+        l0, l1 = pairmod.sam_pe_emit(
+            opt, pref, plan, id0 + i,
+            (names[2 * i], names[2 * i + 1]), codes_pairs[i],
+            (q1, q2), list(reg_pairs[i]), aln_of=aln_of,
+            alns_by_k=maps)
+        out.extend(l0)
+        out.extend(l1)
     return out
 
 

@@ -16,9 +16,11 @@ extraction + rid/pairID assignment) chunk-by-chunk behind the aligner —
 at finish only the global dup-scan + coordinate sort + encode remain.
 Chunks split on QNAME boundaries so mate pairs never straddle a parse
 unit (main.cpp:532-544). `FinalizePool` fans the host SAM finalize out
-to spawned worker processes, which never touch the card.
+to spawned worker processes. Single-end workers never touch the card;
+the workers of a paired-end pool on the card open it and run their
+batches' mate rescue through the kswv kernel there.
 
-Port of the JAX package's pipeline_stream.py for single-end reads.
+Port of the JAX package's pipeline_stream.py.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
 from .io import native
 from .io.sam import SamHeader
@@ -136,16 +139,17 @@ def overlapped_regs(aligner, batch_iter, depth: int = 2,
         yield nm, sq, ql, regs_np, i0
 
 
-def stream_mem(aligner, batch_iter, write_line, depth: int = 2,
-               progress=None):
-    """3-stage overlapped single-end `mem`: prefetched batches -> align
-    -> writer thread. Returns total reads aligned."""
+def stream_mem(aligner, batch_iter, write_line, paired: bool = False,
+               depth: int = 2, progress=None):
+    """3-stage overlapped `mem`: prefetched batches -> align -> writer
+    thread. Returns total reads aligned."""
     n = 0
     writer = LineWriter(write_line, depth=2 * depth)
     try:
         for nm, sq, ql, regs_np, i0 in overlapped_regs(
                 aligner, Prefetcher(batch_iter, depth), depth):
-            writer.put(aligner.finalize_batch(nm, sq, ql, regs_np, i0))
+            writer.put(aligner.finalize_batch(nm, sq, ql, regs_np, i0,
+                                              paired=paired))
             n = i0 + len(nm)
             if progress is not None:
                 progress(n)
@@ -319,11 +323,11 @@ class _DeferredEscalation:
 
 
 def stream_fastq_to_bam(aligner, batch_iter, out_bam_path,
-                        compress_level: int = 6, depth: int = 2,
-                        progress=None, pool=None):
-    """Single-end aligner stage piped straight into the streaming
-    sormadup — the inter-program pipe of the reference, without
-    materialized SAM. The sort runs on the aligner's device.
+                        paired: bool = False, compress_level: int = 6,
+                        depth: int = 2, progress=None, pool=None):
+    """Aligner stage piped straight into the streaming sormadup — the
+    inter-program pipe of the reference, without materialized SAM. The
+    sort runs on the aligner's device.
 
     With `pool` (a FinalizePool), host SAM finalization fans out to
     worker processes while the device aligns ahead — the full
@@ -332,42 +336,50 @@ def stream_fastq_to_bam(aligner, batch_iter, out_bam_path,
     sd = StreamingSortMarkdup(list(aligner.sam_header()), out_bam_path,
                               compress_level, aligner.device)
     n = 0
-    defer = _DeferredEscalation(aligner)
+    # SE only: PE pairing computes the insert-size stats per finalize
+    # cohort, so pulling pairs out of their batch would perturb pestat
+    # for the rest of the batch; PE keeps the synchronous retry
+    defer = None if paired else _DeferredEscalation(aligner)
 
     def batches():
         nonlocal n
         for nm, sq, ql, regs_np, i0 in overlapped_regs(
                 aligner, Prefetcher(batch_iter, depth), depth,
-                sync_retry=False):
+                sync_retry=defer is None):
             n = i0 + len(nm)
+            if defer is None:
+                yield nm, sq, ql, regs_np, i0
+                continue
             kept = defer.split(nm, sq, ql, regs_np, i0)
             if kept is not None:
                 yield kept
             while len(defer.rows) >= defer.cap:
                 yield defer.flush_one(defer.cap)
-        while defer.rows:
+        while defer is not None and defer.rows:
             yield defer.flush_one(defer.cap)
 
     if pool is None:
         for nm, sq, ql, regs_np, ids in batches():
-            sd.feed(aligner.finalize_batch(nm, sq, ql, regs_np, ids))
+            sd.feed(aligner.finalize_batch(nm, sq, ql, regs_np, ids,
+                                           paired=paired))
             if progress is not None:
                 progress(n)
     else:
         pending = collections.deque()
         for nm, sq, ql, regs_np, ids in batches():
             with PROF.phase("POOL_SUBMIT"):
-                pending.append(pool.submit(nm, sq, ql, regs_np, ids))
+                pending.append(pool.submit(nm, sq, ql, regs_np, ids,
+                                           paired))
             while len(pending) > depth:
                 with PROF.phase("POOL_WAIT"):
-                    lines = pending.popleft().result()
+                    lines = pool.collect(pending.popleft())
                 with PROF.phase("SORT_FEED"):
                     sd.feed(lines)
             if progress is not None:
                 progress(n)
         while pending:
             with PROF.phase("POOL_WAIT"):
-                lines = pending.popleft().result()
+                lines = pool.collect(pending.popleft())
             with PROF.phase("SORT_FEED"):
                 sd.feed(lines)
     with PROF.phase("SORT_FINISH"):
@@ -380,11 +392,19 @@ def stream_fastq_to_bam(aligner, batch_iter, out_bam_path,
 # CIGAR/MD/tag work) is spread over worker processes, as the reference
 # spreads it over its worker_sam kt_for team (src/bwamem.cpp:1845).
 # Spawned processes each load the packed reference from the index
-# artifact and run pipeline.finalize_se_batch; they never touch the card.
+# artifact and run pipeline.finalize_se_batch, which never touches the
+# card, or pipeline.finalize_pe_batch, whose mate rescue runs on the
+# pool's device: a paired-end pool on the card has its workers open the
+# card (spawned processes may) and launch the kswv kernel there.
 # ----------------------------------------------------------------------
 
 _W_PREF = None
 _W_OPT = None
+_W_DEVICE = None
+# the paired-end workers' kswv work, summed over the batches the pools'
+# collect() returned: launches, jobs, DP cells, and the kernel ms of the
+# CUDA events the kernel's C entry point records around each launch
+POOL_KSWV = {"launches": 0, "jobs": 0, "cells": 0, "ms": 0.0}
 
 
 def _worker_warm(dt):
@@ -393,48 +413,95 @@ def _worker_warm(dt):
     return 0
 
 
-def _finalize_worker_init(pref_path, opt):
-    global _W_PREF, _W_OPT
+def _finalize_worker_init(pref_path, opt, device):
+    """Load the reference; with a CUDA `device`, open the card and bind
+    the kswv kernel the parent built (raises when the card cannot be
+    opened: a paired-end batch never falls back to the CPU)."""
+    global _W_PREF, _W_OPT, _W_DEVICE
     from .index.reference import PackedReference
+    from .ops import kernels
 
     _W_PREF = PackedReference.load(pref_path)
     _W_OPT = opt
+    _W_DEVICE = None if device is None else torch.device(device)
+    if _W_DEVICE is not None and _W_DEVICE.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"finalize worker: cannot open {_W_DEVICE}:"
+                               " no CUDA device is available")
+        torch.zeros(1, device=_W_DEVICE)
+        kernels.load("kswv")
+        kernels.TIMED["kswv"] = []
 
 
 def _finalize_worker_run(args):
+    """(SAM lines, this batch's kswv work or None for single-end)."""
     from . import pipeline as pipemod
+    from .ops import kernels, kswv
 
-    names, seqs, quals, regs_np, id0 = args
-    return pipemod.finalize_se_batch(_W_PREF, _W_OPT, None, names, seqs,
-                                     quals, regs_np, id0)
+    names, seqs, quals, regs_np, id0, paired = args
+    if not paired:
+        return pipemod.finalize_se_batch(_W_PREF, _W_OPT, None, names,
+                                         seqs, quals, regs_np, id0), None
+    l0, w0 = kernels.LAUNCHES["kswv"], dict(kswv.WORK)
+    lines = pipemod.finalize_pe_batch(_W_PREF, _W_OPT, names, seqs, quals,
+                                      regs_np, id0, _W_DEVICE)
+    timed = kernels.TIMED.get("kswv", [])
+    work = dict(launches=kernels.LAUNCHES["kswv"] - l0,
+                jobs=kswv.WORK["jobs"] - w0["jobs"],
+                cells=kswv.WORK["cells"] - w0["cells"],
+                ms=sum(s.elapsed_time(e) for s, e in timed))
+    timed.clear()
+    return lines, work
 
 
 class FinalizePool:
-    """Process pool for single-end finalize; submission order is
-    delivery order."""
+    """Process pool for finalize; submission order is delivery order.
+    `device` is the device of paired-end batches' mate rescue (the
+    aligner's); a pool without one finalizes single-end batches only.
+    With the card as `device`, the kernels are built here, before the
+    workers start, and each worker opens the card."""
 
-    def __init__(self, pref_path: str, opt, workers: int):
+    def __init__(self, pref_path: str, opt, workers: int, device=None):
         import concurrent.futures
         import multiprocessing
 
+        from .ops import kernels
+
+        self.device = None if device is None else torch.device(device)
+        if self.device is not None and self.device.type == "cuda":
+            kernels.build()
         self._ex = concurrent.futures.ProcessPoolExecutor(
             max_workers=workers, mp_context=multiprocessing.get_context(
                 "spawn"),
-            initializer=_finalize_worker_init, initargs=(pref_path, opt))
+            initializer=_finalize_worker_init,
+            initargs=(pref_path, opt, self.device))
         # force every worker to spawn now (spawn is lazy)
         list(self._ex.map(_worker_warm, [0.2] * workers))
 
-    def submit(self, names, seqs, quals, regs_np, id0):
+    def submit(self, names, seqs, quals, regs_np, id0, paired=False):
+        if paired and self.device is None:
+            raise ValueError("FinalizePool: paired-end batches need the "
+                             "pool's device for mate rescue")
         seqs = [np.asarray(s) for s in seqs]
         return self._ex.submit(_finalize_worker_run,
-                               (names, seqs, quals, regs_np, id0))
+                               (names, seqs, quals, regs_np, id0, paired))
+
+    @staticmethod
+    def collect(fut):
+        """The SAM lines of a submitted batch; its kswv work is added to
+        POOL_KSWV."""
+        lines, work = fut.result()
+        if work is not None:
+            for k, v in work.items():
+                POOL_KSWV[k] += v
+        return lines
 
     def shutdown(self):
         self._ex.shutdown()
 
 
 def stream_mem_pooled(aligner, batch_iter, write_line, pool: FinalizePool,
-                      depth: int = 3, progress=None):
+                      paired: bool = False, depth: int = 3, progress=None):
     """stream_mem with finalize fanned out to worker processes. The
     device stays busy while N workers chew the Python SAM work; lines
     are written in submission order."""
@@ -444,14 +511,14 @@ def stream_mem_pooled(aligner, batch_iter, write_line, pool: FinalizePool,
     try:
         for nm, sq, ql, regs_np, i0 in overlapped_regs(
                 aligner, Prefetcher(batch_iter, depth), depth):
-            pending.append(pool.submit(nm, sq, ql, regs_np, i0))
+            pending.append(pool.submit(nm, sq, ql, regs_np, i0, paired))
             n = i0 + len(nm)
             while len(pending) > depth:
-                writer.put(pending.popleft().result())
+                writer.put(pool.collect(pending.popleft()))
             if progress is not None:
                 progress(n)
         while pending:
-            writer.put(pending.popleft().result())
+            writer.put(pool.collect(pending.popleft()))
     finally:
         writer.close()
     return n

@@ -3,9 +3,9 @@
     python -m fgdp_tpu_torch.probes.sass
 
 runs `cuobjdump -sass` (CUDA toolkit) on the kernel libraries under
-build/fgdp_tpu_torch/ (building them first) and prints, for the SW and
-PairHMM kernels' row loops at every K, the chain loop's step loop at
-every K and the INT32 issue probe's step loop,
+build/fgdp_tpu_torch/ (building them first) and prints, for the SW,
+kswv and PairHMM kernels' row loops at every K, the chain loop's step
+loop at every K and the INT32 issue probe's step loop,
 the SASS instructions of the loop body and the most frequent opcodes.
 A loop is the span from a backward branch's target to the branch; the
 outermost (largest) loop of a kernel's main body is taken, and
@@ -132,6 +132,12 @@ def pairhmm_row_loops():
     return template_loops("pairhmm", "pairhmm_regs_kernel")
 
 
+def kswv_row_loops():
+    """{K: (instructions, opcodes)} of the kswv register kernel's row
+    loop (the target chunk's load and the row maxima's store included)."""
+    return template_loops("kswv", "kswv_regs_kernel")
+
+
 def chain_step_loops():
     """{K: (instructions, opcodes)} of the chain loop's register kernel's
     step loop (the next chunk's loads and the chain-id stores of a chunk
@@ -152,10 +158,15 @@ def _show(label, loop, per=None):
 
 
 def main():
-    kernels.build(("sw_extend", "pairhmm", "chain_loop", "vpu_ceiling"))
+    kernels.build(("sw_extend", "kswv", "pairhmm", "chain_loop",
+                   "vpu_ceiling"))
     for k, loop in sorted(sw_row_loops().items()):
         if loop is not None:
             _show(f"sw_extend K={k} row loop (32 lanes x {k} columns)",
+                  loop, ("column a lane holds", k))
+    for k, loop in sorted(kswv_row_loops().items()):
+        if loop is not None:
+            _show(f"kswv K={k} row loop (32 lanes x {k} columns)",
                   loop, ("column a lane holds", k))
     for k, loop in sorted(pairhmm_row_loops().items()):
         if loop is not None:

@@ -12,8 +12,8 @@ run it there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 It also holds the seeded inputs that test_torch_sw.py,
-test_torch_chain.py, test_torch_pairhmm.py and test_torch_sortdup.py
-share with it."""
+test_torch_chain.py, test_torch_kswv.py, test_torch_pairhmm.py and
+test_torch_sortdup.py share with it."""
 
 import os
 
@@ -23,7 +23,7 @@ import torch
 
 from fgdp_tpu_torch.align import chain
 from fgdp_tpu_torch.config import AlignConfig, BatchShapes
-from fgdp_tpu_torch.ops import kernels, pairhmm, sw
+from fgdp_tpu_torch.ops import kernels, kswv, pairhmm, sw
 
 HERE = os.path.join(os.path.dirname(__file__), "golden")
 OPT = AlignConfig()
@@ -267,6 +267,58 @@ def hmm_edge_pairs(seed, H, R=40, cq=10, copies=2, n_frac=0.03):
     dq = rng.integers(20, 46, (n, R)).astype(np.int32)
     c = np.full((n, R), cq, np.int32)
     return reads, rlens, q, iq, dq, c, haps, hlens
+
+
+def kswv_jobs(seed, n, QP, TP, empty=0.05):
+    """Mate-rescue-like local-SW jobs as ops/kswv.kswv_forward takes them
+    (q [n, QP], qlen, t [n, TP], tlen; codes past the lengths are 4, as
+    the job packing leaves them): two thirds of the queries a copy of a
+    target slice with 8% substitutions, a 1-5 base deletion in half and
+    junk at the head in a fifth (tests/test_kswv.py's generator), the
+    rest random; an N base in a tenth of the queries and 1% of the target
+    bases. A quarter of the queries are QP long, the rest 1 to QP; targets
+    1 to TP. `empty` of the jobs have qlen = tlen = 0, as the padding of
+    the job bucket."""
+    rng = np.random.default_rng(seed)
+    q = np.full((n, QP), 4, np.int32)
+    t = rng.integers(0, 4, (n, TP)).astype(np.int32)
+    t[rng.random((n, TP)) < 0.01] = 4
+    qlen = np.where(rng.random(n) < 0.25, QP,
+                    rng.integers(1, QP + 1, n)).astype(np.int32)
+    tlen = rng.integers(1, TP + 1, n).astype(np.int32)
+    for i in range(n):
+        lq, lt = int(qlen[i]), int(tlen[i])
+        qi = rng.integers(0, 4, lq)
+        if i % 3 != 2 and lt > 1:
+            span = min(lq, lt - 1)
+            off = int(rng.integers(0, lt - span))
+            c = t[i, off:off + span].copy()
+            m = rng.random(span) < 0.08
+            c[m] = rng.integers(0, 4, int(m.sum()))
+            if span > 30 and rng.random() < 0.5:
+                cut = int(rng.integers(5, span - 20))
+                c = np.concatenate([c[:cut], c[cut + int(rng.integers(1, 6)):]])
+            if rng.random() < 0.2:
+                c[:3] = rng.integers(0, 4, min(3, len(c)))
+            qi[:len(c)] = c
+        if rng.random() < 0.1:
+            qi[int(rng.integers(0, lq))] = 4
+        q[i, :lq] = qi
+        t[i, lt:] = 4
+    gone = rng.random(n) < empty
+    qlen[gone] = 0
+    tlen[gone] = 0
+    return q, qlen, t, tlen
+
+
+KSWV_EDGE_QPS = (1, 31, 32, 33, 160, 256)
+KSWV_WIDE_QPS = (257, 400)
+KSWV_PENALTIES = {"default": dict(a=1, b=4, o_del=6, e_del=1, o_ins=6,
+                                  e_ins=1),
+                  "pacbio": dict(a=1, b=1, o_del=1, e_del=1, o_ins=1,
+                                 e_ins=1),
+                  "uneven": dict(a=2, b=3, o_del=5, e_del=2, o_ins=3,
+                                 e_ins=1)}
 
 
 HEADER = ["@HD\tVN:1.6\tSO:unsorted",
@@ -523,6 +575,103 @@ def test_aligner_on_card_equals_cpu(dev):
     on_cpu = Aligner(pref, fm, shapes=shapes, device="cpu")
     assert on_card.align_batch(names, seqs, quals) == \
         on_cpu.align_batch(names, seqs, quals)
+
+
+def _kswv_on_card_equals_plain(dev, jobs, pen, path):
+    args = [torch.as_tensor(a, device=dev) for a in jobs]
+    n0, p0 = kernels.LAUNCHES["kswv"], kswv.PATH_LAUNCHES[path]
+    got = kswv.kswv_forward(*args, **pen)
+    assert kernels.LAUNCHES["kswv"] == n0 + 1
+    assert kswv.PATH_LAUNCHES[path] == p0 + 1
+    want = kswv.kswv_forward_plain(*args, **pen)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pen", sorted(KSWV_PENALTIES))
+@pytest.mark.parametrize("QP", KSWV_EDGE_QPS)
+def test_kswv_kernel_at_lane_boundaries(dev, QP, pen):
+    best = _kswv_on_card_equals_plain(dev, kswv_jobs(QP, 96, QP, 300),
+                                      KSWV_PENALTIES[pen], "registers")[0]
+    assert int(best.max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("QP", KSWV_WIDE_QPS)
+def test_kswv_kernel_wide(dev, QP):
+    """Queries above the register path's widest take the wide path, and
+    it equals the register path where both apply (the same jobs padded
+    wider give the same results)."""
+    jobs = kswv_jobs(QP + 1, 64, QP, 512)
+    _kswv_on_card_equals_plain(dev, jobs, KSWV_PENALTIES["default"],
+                               "wide")
+    narrow = kswv_jobs(5, 64, 160, 512)
+    got = _kswv_on_card_equals_plain(dev, narrow, KSWV_PENALTIES["default"],
+                                     "registers")
+    q = np.full((64, QP), 4, np.int32)
+    q[:, :160] = narrow[0]
+    wide = _kswv_on_card_equals_plain(
+        dev, (q,) + narrow[1:], KSWV_PENALTIES["default"], "wide")
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], wide[:2]))
+    assert torch.equal(got[3], wide[3])
+    assert torch.equal(got[2], wide[2][:, :160])
+
+
+@pytest.mark.cuda
+def test_kswv_kernel_on_a_mostly_empty_batch(dev):
+    jobs = kswv_jobs(3, 256, 160, 512, empty=0.9)
+    best, te, _, row_max = _kswv_on_card_equals_plain(
+        dev, jobs, KSWV_PENALTIES["default"], "registers")
+    empty = torch.as_tensor(jobs[3] == 0, device=dev)
+    assert int(best[empty].abs().sum()) == 0 and bool((te[empty] == -1).all())
+    assert int(row_max[empty].abs().sum()) == 0 and int(best.max()) > 0
+
+
+@pytest.mark.cuda
+def test_kswv_kernel_times_each_launch_when_asked(dev):
+    kernels.TIMED["kswv"] = []
+    try:
+        _kswv_on_card_equals_plain(dev, kswv_jobs(9, 64, 160, 512),
+                                   KSWV_PENALTIES["default"], "registers")
+        pairs = kernels.TIMED["kswv"]
+    finally:
+        kernels.TIMED.pop("kswv", None)
+    torch.cuda.synchronize()
+    assert len(pairs) == 1 and pairs[0][0].elapsed_time(pairs[0][1]) > 0
+
+
+@pytest.mark.cuda
+def test_align_pairs_on_card_equals_cpu(dev):
+    """The golden pairs, five of them with the second end baited (every
+    12th base changed: only mate rescue places it), in one batch."""
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.io.fastq import parse_fastq_records
+    from fgdp_tpu_torch.pipeline import Aligner
+    from fgdp_tpu_torch.utils import dna
+
+    pref = PackedReference.from_fasta(os.path.join(HERE, "ref.fa"))
+    fm = FMIndex.build(pref.codes)
+    names, seqs, quals = [], [], []
+    for i, (r1, r2) in enumerate(zip(*(
+            parse_fastq_records(os.path.join(HERE, f))
+            for f in ("pe1.fq", "pe2.fq")))):
+        for k, r in enumerate((r1, r2)):
+            s = dna.encode(r[2]).astype(np.int64)
+            if k == 1 and i in (3, 17, 41, 75, 95):
+                s[::12] = (s[::12] + 1) % 4
+            names.append(r[0])
+            seqs.append(s)
+            quals.append(r[3].decode())
+    shapes = BatchShapes(batch_reads=len(seqs))
+    on_card = Aligner(pref, fm, shapes=shapes, device=dev)
+    on_cpu = Aligner(pref, fm, shapes=shapes, device="cpu")
+    n0 = kernels.LAUNCHES["kswv"]
+    card_lines = on_card.align_pairs(names, seqs, quals)
+    assert kernels.LAUNCHES["kswv"] > n0
+    assert card_lines == on_cpu.align_pairs(names, seqs, quals)
 
 
 @pytest.mark.cuda

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from fgdp_tpu_torch.align import chain
-from fgdp_tpu_torch.ops import pairhmm, sw
+from fgdp_tpu_torch.ops import kswv, pairhmm, sw
 from fgdp_tpu_torch.probes import gather, vpu_ceiling
 from fgdp_tpu_torch.utils import device as devmod
 
@@ -141,12 +141,14 @@ def test_no_device_without_cuda_raises(monkeypatch, tmp_path):
     prefix = str(tmp_path / "idx")
     cli.main(["index", os.path.join(ROOT, "tests", "golden", "ref.fa"),
               prefix])
+    golden = os.path.join(ROOT, "tests", "golden")
     for cmd in ("pipeline", "mem"):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main([cmd, prefix, os.path.join(ROOT, "tests", "golden",
-                                                "se.fq"),
-                      "-O" if cmd == "pipeline" else "-o", os.devnull,
-                      "-t", "2"])
+        for reads in (["se.fq"], ["pe1.fq", "pe2.fq"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                cli.main([cmd, prefix,
+                          *(os.path.join(golden, r) for r in reads),
+                          "-O" if cmd == "pipeline" else "-o", os.devnull,
+                          "-t", "2"])
     assert Mutect2Engine(np.zeros(100, np.uint8), "c",
                          device="cpu").device.type == "cpu"
     assert devmod.resolve_device("cpu").type == "cpu"
@@ -171,12 +173,15 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch):
     monkeypatch.setattr(sw, "sw_extend_plain", fail_plain)
     monkeypatch.setattr(chain, "chain_loop_plain", fail_plain)
     monkeypatch.setattr(pairhmm, "forward_f32", fail_plain)
+    monkeypatch.setattr(kswv, "kswv_forward_plain", fail_plain)
     monkeypatch.setattr(sw, "sw_extend_kernel",
                         lambda *a, **k: calls.append("sw"))
     monkeypatch.setattr(chain, "chain_loop_kernel",
                         lambda *a, **k: calls.append("chain"))
     monkeypatch.setattr(pairhmm, "forward_f32_kernel",
                         lambda *a, **k: calls.append("pairhmm"))
+    monkeypatch.setattr(kswv, "kswv_forward_kernel",
+                        lambda *a, **k: calls.append("kswv"))
     monkeypatch.setattr(vpu_ceiling, "vpu_ceiling_plain", fail_plain)
     monkeypatch.setattr(gather, "gather_rows_plain", fail_plain)
     monkeypatch.setattr(vpu_ceiling, "vpu_ceiling_kernel",
@@ -188,9 +193,11 @@ def test_cuda_tensors_never_reach_plain_versions(monkeypatch):
     sw.sw_extend(stub, stub, stub, stub, stub, 100, p)
     chain.chain_loop(stub, stub, stub, stub, stub, stub, 10, 4, 100, 1000)
     pairhmm.forward_f32_any(stub, stub, stub, stub, stub, stub)
+    kswv.kswv_forward(stub, stub, stub, stub, a=1, b=4, o_del=6, e_del=1,
+                      o_ins=6, e_ins=1)
     vpu_ceiling.vpu_ceiling(stub, 3, 4)
     gather.gather_rows(stub, stub)
-    assert calls == ["sw", "chain", "pairhmm", "vpu", "gather"]
+    assert calls == ["sw", "chain", "pairhmm", "kswv", "vpu", "gather"]
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -207,3 +214,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     f = torch.zeros((4, 8), dtype=torch.float32)
     with pytest.raises(ValueError):
         pairhmm.forward_f32_kernel(z, z1, f, torch.zeros((4, 8, 6)), z, z1)
+    with pytest.raises(ValueError):
+        kswv.kswv_forward_kernel(z, z1, z, z1, a=1, b=4, o_del=6, e_del=1,
+                                 o_ins=6, e_ins=1)
+
+
+def test_paired_finalize_never_leaves_the_card(tmp_path):
+    """A finalize worker asked to rescue mates on the card raises when it
+    cannot open it, and a pool without a device refuses paired batches
+    (their mate rescue never moves to the CPU silently)."""
+    from fgdp_tpu_torch.config import AlignConfig
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.pipeline_stream import (FinalizePool,
+                                                _finalize_worker_init)
+
+    pref = PackedReference.from_contigs(
+        ["c"], [np.random.default_rng(0).integers(0, 4, 500)])
+    pref.save(str(tmp_path / "idx.ref"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _finalize_worker_init(str(tmp_path / "idx.ref"), AlignConfig(),
+                              "cuda")
+    pool = FinalizePool(str(tmp_path / "idx.ref"), AlignConfig(), 1)
+    try:
+        with pytest.raises(ValueError, match="device"):
+            pool.submit(["a", "a"], [np.zeros(5)] * 2, None, {}, 0,
+                        paired=True)
+    finally:
+        pool.shutdown()
