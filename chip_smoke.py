@@ -31,7 +31,7 @@ fails loudly:
   5. ladder   a tight-capacity batch through every escalation rung on
               the card, equal to the port's CPU run
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
-              reference (scripts/gen_genome.py's generator) and 16,384
+              reference (scripts/gen_genome.py's generator) and 8,192
               single-end 151 bp reads; launch counts, reads/s, per-stage
               ms, the SW and chain-loop kernels' summed time (CUDA
               events around every launch; the chain loop's by launch
@@ -40,7 +40,7 @@ fails loudly:
               against the reference binary's golden.vcf by
               tests/test_golden_vcf.py's rules
   8. mutect_scale   BASELINE config 4's class on the same 4.6 Mb genome:
-              300 planted somatic SNVs, 30x tumor at VAF 0.35 and 20x
+              150 planted somatic SNVs, 30x tumor at VAF 0.35 and 20x
               normal (scripts/mutect_campaign.py's generator), regions/s,
               PairHMM launches, pairs, cells and kernel ms (events the C
               entry point records around each launch), its launches by
@@ -53,13 +53,13 @@ fails loudly:
               replace the lane counts in the bounds where they are higher
               (runs first, before the kernels phase)
  10. sormadup_scale BASELINE config 3's class: a coordinate-shuffled SAM
-              of 1,000,000 records (151 bp pairs with 10% planted
+              of 500,000 records (151 bp pairs with 10% planted
               duplicate pairs, singles, unmapped) on a chr20-length
               contig, through `sormadup` on the card and on the CPU: BAM
               and BAI byte-equal; records/s and the SD_* phase times
  11. pipeline_scale FASTQ -> sorted, duplicate-marked BAM through
               `pipeline -t min(cpu-1, 8)` on the card, on the scale
-              phase's index and reads plus 1,638 planted duplicates:
+              phase's index and reads plus 819 planted duplicates:
               record count, coordinate order, the planted duplicates
               found, and the records equal to the `mem` SAM of the same
               reads, flags aside; reads/s end to end; the chain loop's
@@ -79,6 +79,7 @@ Then one JSON line of the kernels, the card line, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -93,13 +94,21 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 # operation rates are lanes x SMs x the maximum SM clock
 # (fgdp_tpu_torch.probes.card), or the probes' measured rates where higher
 PEAK_BYTES = 3.35e12
-MUTECT_SITES = 300
+MUTECT_SITES = 150
 MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
 PE_KERNELS = MEM_KERNELS + ("kswv",)        # and of paired-end `mem`
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def phase_clock(name):
+    """Log the wall seconds of one phase."""
+    t0 = time.time()
+    yield
+    log(f"[time] {name}: {time.time() - t0:.1f} s")
 
 
 # ------------------------------------------------------------------ data
@@ -1725,10 +1734,13 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
 PHASES = ("probes", "kernels", "golden", "ladder", "scale",
           "mutect_golden", "mutect_scale", "sormadup_scale",
           "pipeline_scale", "pe_scale")
-SCALE_READS = 16_384
+# the earlier paths' depth, cut when pe_scale came so that the whole run
+# stays near half its time limit (PR 6: 16,384 reads, 1,638 duplicates,
+# 1,000,000 records, 300 sites)
+SCALE_READS = 8_192
 PE_PAIRS = 8_192
-PIPELINE_DUPS = 1_638
-SORMADUP_RECORDS = 1_000_000
+PIPELINE_DUPS = 819
+SORMADUP_RECORDS = 500_000
 
 
 def main(argv=None):
@@ -1758,34 +1770,46 @@ def main(argv=None):
     dev = torch.device("cuda")
     t_start = time.time()
     card, rates = phase_card()
-    phase_build()
+    with phase_clock("build"):
+        phase_build()
     rows, launches = {}, {}
     if "probes" in phases:
-        prows, plaunch, rates = phase_probes(dev, rates)
+        with phase_clock("probes"):
+            prows, plaunch, rates = phase_probes(dev, rates)
         rows.update(prows)
         launches.update(plaunch)
     if "kernels" in phases:
-        rows.update(phase_kernels(dev, rates))
+        with phase_clock("kernels"):
+            rows.update(phase_kernels(dev, rates))
     with tempfile.TemporaryDirectory(prefix="fgdp_smoke_") as tmp:
         if "golden" in phases:
-            phase_golden(tmp)
+            with phase_clock("golden"):
+                phase_golden(tmp)
         if "ladder" in phases:
-            phase_ladder(dev)
+            with phase_clock("ladder"):
+                phase_ladder(dev)
         if phases & {"scale", "pipeline_scale", "pe_scale"}:
-            mem_launches, ctx = phase_scale(dev, tmp, genome_bp=4_600_000,
-                                            n_reads=SCALE_READS, batch=4096)
+            with phase_clock("scale"):
+                mem_launches, ctx = phase_scale(
+                    dev, tmp, genome_bp=4_600_000, n_reads=SCALE_READS,
+                    batch=4096)
             launches.update(mem_launches)
         if "mutect_golden" in phases:
-            phase_mutect_golden(tmp)
+            with phase_clock("mutect_golden"):
+                phase_mutect_golden(tmp)
         if "mutect_scale" in phases:
-            launches["pairhmm"] = phase_mutect_scale(dev, 4_600_000)
+            with phase_clock("mutect_scale"):
+                launches["pairhmm"] = phase_mutect_scale(dev, 4_600_000)
         if "sormadup_scale" in phases:
-            phase_sormadup_scale(tmp, SORMADUP_RECORDS)
+            with phase_clock("sormadup_scale"):
+                phase_sormadup_scale(tmp, SORMADUP_RECORDS)
         if "pipeline_scale" in phases:
-            phase_pipeline_scale(dev, tmp, ctx, 4096, PIPELINE_DUPS)
+            with phase_clock("pipeline_scale"):
+                phase_pipeline_scale(dev, tmp, ctx, 4096, PIPELINE_DUPS)
         if "pe_scale" in phases:
-            launches["kswv"] = phase_pe_scale(dev, tmp, ctx, PE_PAIRS,
-                                              4096)["kswv"]
+            with phase_clock("pe_scale"):
+                launches["kswv"] = phase_pe_scale(dev, tmp, ctx, PE_PAIRS,
+                                                  4096)["kswv"]
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed in "
             f"{time.time() - t_start:.1f} s (partial run: no result)")
