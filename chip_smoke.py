@@ -45,7 +45,7 @@ fails loudly:
               PairHMM launches, pairs, cells and kernel ms (events the C
               entry point records around each launch), its launches by
               (R, H) bucket, the share of planted sites called, and the
-              first 20 sites' calls equal to the port's CPU run
+              first 10 sites' calls equal to the port's CPU run
   9. probes   the S1 issue-rate probe (FP32 FMA chains and their INT32
               twin) and the S2 row-gather probe: each kernel against its
               plain version (FP32 within rtol 1e-5, INT32 and the gather
@@ -95,6 +95,9 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 # (fgdp_tpu_torch.probes.card), or the probes' measured rates where higher
 PEAK_BYTES = 3.35e12
 MUTECT_SITES = 300
+# the planted sites of mutect_scale's warm pass, run on the card and on
+# the CPU (20 before pe_scale came; cut with the other depths below)
+WARM_SITES = 10
 MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
 PE_KERNELS = MEM_KERNELS + ("kswv",)        # and of paired-end `mem`
 
@@ -1170,9 +1173,9 @@ def phase_mutect_scale(dev, genome_bp):
     """scripts/mutect_campaign.py's run on the card: somatic SNVs planted
     on a 1,500 bp grid of the scale genome (seed 17), 30x tumor at VAF
     0.35 and 20x normal, 151 bp; Mutect2Engine.call_windows over the
-    contig with a region pool, after one warm pass over the first 20
-    sites. That warm pass's calls must equal the port's CPU run of the
-    same span."""
+    contig with a region pool, after one warm pass over the first
+    WARM_SITES sites. That warm pass's calls must equal the port's CPU run
+    of the same span."""
     import torch
     from fgdp_tpu_torch.call.engine import (Mutect2Engine, _ReadIndex,
                                             apply_filter_mutect_calls)
@@ -1195,7 +1198,7 @@ def phase_mutect_scale(dev, genome_bp):
         f"tumor {len(tumor)} + normal {len(normal)} reads of 151 bp, made "
         f"in {time.time() - t0:.1f} s")
     workers = min((os.cpu_count() or 2) - 1, 8)
-    warm_end = (int(pos[19]) + int(pos[20])) // 2   # the first 20 sites
+    warm_end = (int(pos[WARM_SITES - 1]) + int(pos[WARM_SITES])) // 2
 
     def windows(end, size):
         for rs in range(0, end, size):
@@ -1260,7 +1263,7 @@ def phase_mutect_scale(dev, genome_bp):
         f"{PROF.counts[HMM_F64] - f0} pairs in {wait[HMM_F64]:.2f} s "
         f"({100 * wait[HMM_F64] / wall:.1f}%)")
 
-    # the first 20 sites' span on the CPU: the same calls
+    # the first WARM_SITES sites' span on the CPU: the same calls
     t0 = time.time()
     cpu_eng, cpu_warm = call("cpu", warm_end)
     cpu_eng.close()
@@ -1268,11 +1271,12 @@ def phase_mutect_scale(dev, genome_bp):
                         (cpu_warm, cpu_eng.callable_sites)):
         apply_filter_mutect_calls(cs, callable_sites=max(n_sites, 1))
     same = _same_calls(warm, cpu_warm)
-    log(f"[mutect_scale] first 20 sites: {len(warm)} calls on the card, "
+    log(f"[mutect_scale] first {WARM_SITES} sites: {len(warm)} calls on the "
+        f"card, "
         f"{len(cpu_warm)} on the CPU ({time.time() - t0:.1f} s), same "
         f"sites, FILTERs and LODs within 0.01: {same}")
     if not same:
-        raise AssertionError("the card's calls over the first 20 sites "
+        raise AssertionError("the card's calls over the first sites "
                              "differ from the CPU run")
     if hit < 0.9 * len(sites):
         raise AssertionError(f"only {hit} of {len(sites)} planted sites "
@@ -1734,10 +1738,10 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
 PHASES = ("probes", "kernels", "golden", "ladder", "scale",
           "mutect_golden", "mutect_scale", "sormadup_scale",
           "pipeline_scale", "pe_scale")
-# the earlier paths' depth, cut when pe_scale came so that the whole run
-# stays near half its time limit (PR 6: 16,384 reads, 1,638 duplicates,
-# 1,000,000 records). mutect_scale keeps its 300 sites: its card-vs-CPU
-# check spans the first 20, so fewer sites lengthen that span
+# the earlier paths' depth, halved when pe_scale came so that the whole
+# run stays near half its time limit (from 16,384 reads, 1,638
+# duplicates, 1,000,000 records). mutect_scale keeps its 300 sites, whose
+# spacing sets the span of its card-vs-CPU check (WARM_SITES)
 SCALE_READS = 8_192
 SCALE_READS = 8_192
 PE_PAIRS = 8_192
