@@ -21,8 +21,8 @@ fails loudly:
               path, with its path, ms per step of the longest read and
               its serial bound; kswv exactly equal on rescue jobs made as
               pe_scale makes them, at the register path's lane edges, on
-              the wide path and on a mostly empty batch); for SW, kswv and
-              PairHMM also their warp rows and the SASS instructions of
+              the wide path and on a mostly empty batch); for SW, kswv
+              and PairHMM also their warp rows and the SASS instructions of
               the row loops (of the chain loop's step loop), for SW each
               query-length class's share of its time
   4. golden   `index` + `mem` on the golden fixtures (single-end, and the
@@ -31,7 +31,7 @@ fails loudly:
   5. ladder   a tight-capacity batch through every escalation rung on
               the card, equal to the port's CPU run
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
-              reference (scripts/gen_genome.py's generator) and 8,192
+              reference (scripts/gen_genome.py's generator) and 12,288
               single-end 151 bp reads; launch counts, reads/s, per-stage
               ms, the SW and chain-loop kernels' summed time (CUDA
               events around every launch; the chain loop's by launch
@@ -53,13 +53,13 @@ fails loudly:
               replace the lane counts in the bounds where they are higher
               (runs first, before the kernels phase)
  10. sormadup_scale BASELINE config 3's class: a coordinate-shuffled SAM
-              of 500,000 records (151 bp pairs with 10% planted
+              of 1,000,000 records (151 bp pairs with 10% planted
               duplicate pairs, singles, unmapped) on a chr20-length
               contig, through `sormadup` on the card and on the CPU: BAM
               and BAI byte-equal; records/s and the SD_* phase times
  11. pipeline_scale FASTQ -> sorted, duplicate-marked BAM through
               `pipeline -t min(cpu-1, 8)` on the card, on the scale
-              phase's index and reads plus 819 planted duplicates:
+              phase's index and reads plus 1,228 planted duplicates:
               record count, coordinate order, the planted duplicates
               found, and the records equal to the `mem` SAM of the same
               reads, flags aside; reads/s end to end; the chain loop's
@@ -71,6 +71,9 @@ fails loudly:
               it) through `mem` in-process and `pipeline -t min(cpu-1, 8)`
               (the workers rescue on the card): pairs/s and reads/s, kswv
               launches, jobs, cells and kernel ms (the workers' included),
+              the (J, QP, TP) of the `mem` run's kswv launches, each held
+              exactly against the plain version on its inputs, and kswv's
+              timed case, bound and row-loop SASS on one of them,
               the share properly paired, placement of confident ends and
               of the bait ends, the BAM's count and order, and the first
               256 pairs' SAM on the card equal to the port's CPU run
@@ -96,7 +99,8 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 PEAK_BYTES = 3.35e12
 MUTECT_SITES = 300
 # the planted sites of mutect_scale's warm pass, run on the card and on
-# the CPU (20 before pe_scale came; cut with the other depths below)
+# the CPU: the CPU side is the slowest span of the earlier paths (about
+# 3-4 s a site)
 WARM_SITES = 10
 MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
 PE_KERNELS = MEM_KERNELS + ("kswv",)        # and of paired-end `mem`
@@ -426,7 +430,7 @@ def phase_kernels(dev, rates):
 
     rows["chain_loop"] = kernels_chain(dev, rates)
     rows["pairhmm"] = kernels_pairhmm(dev, rates)
-    rows["kswv"] = kernels_kswv(dev, rates)
+    kernels_kswv(dev, rates)
     return rows
 
 
@@ -728,42 +732,46 @@ def rescue_jobs(g, n_pairs, opt):
     return jobs, pes[1]
 
 
-def kernels_kswv(dev, rates):
-    """D6 against its plain version, all four outputs exactly equal: on
-    rescue jobs made as pe_scale makes them (packed and bucketed as
-    ksw_align_local_batch packs them; the timed case), at the register
-    path's lane edges, on the wide path and on a mostly empty batch.
-    Kernel ms from the events the C entry point records around each
-    launch. Returns the rescue case's row."""
-    import torch
+def kswv_pen():
     from fgdp_tpu_torch.config import AlignConfig
-    from fgdp_tpu_torch.ops import kswv
-    from fgdp_tpu_torch.probes import KSWV_OPS_PER_CELL, wall_ms
-
     opt = AlignConfig()
-    pen = dict(a=opt.a, b=opt.b, o_del=opt.o_del, e_del=opt.e_del,
-               o_ins=opt.o_ins, e_ins=opt.e_ins)
-    kswv_jobs = load_file("tests/test_torch_cuda.py").kswv_jobs
+    return opt, dict(a=opt.a, b=opt.b, o_del=opt.o_del, e_del=opt.e_del,
+                     o_ins=opt.o_ins, e_ins=opt.e_ins)
 
-    def check(label, arrays):
-        args = [torch.as_tensor(a, device=dev) for a in arrays]
-        run = lambda: kswv.kswv_forward_kernel(*args, **pen)
+
+def kswv_hold(label, args, got=None):
+    """kswv's plain version on the card tensors `args` (q, qlen, t, tlen),
+    held exactly against the kernel's outputs `got` (launched here when
+    None), all four outputs. Returns (outputs, paths taken, plain ms)."""
+    from fgdp_tpu_torch.ops import kswv
+    from fgdp_tpu_torch.probes import wall_ms
+
+    _, pen = kswv_pen()
+    path = []
+    if got is None:
         p0 = dict(kswv.PATH_LAUNCHES)
-        got = run()
+        got = kswv.kswv_forward_kernel(*args, **pen)
         path = [p for p in p0 if kswv.PATH_LAUNCHES[p] > p0[p]]
-        plain_ms, want = wall_ms(lambda: kswv.kswv_forward_plain(*args,
-                                                                 **pen))
-        err = max_abs_err(got, want)
-        if err != 0:
-            raise AssertionError(f"kswv {label} differs from its plain "
-                                 f"version (max abs err {err})")
-        return run, path, plain_ms, got
+    plain_ms, want = wall_ms(lambda: kswv.kswv_forward_plain(*args, **pen))
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"kswv {label} differs from its plain version "
+                             f"(max abs err {err})")
+    return got, path, plain_ms
 
-    jobs, fr = rescue_jobs(gen_genome(4_600_000, seed=0),
-                           KSWV_RESCUE_PAIRS, opt)
-    q, t, qlen, tlen = kswv._pack(jobs)
-    run, path, plain_ms, got = check("rescue", (q, qlen, t, tlen))
-    ms = timed_ms("kswv", run)
+
+def kswv_row(tag, args, rates):
+    """The kernels line's kswv numbers on one launch's card tensors:
+    held exactly against its plain version, kernel ms from the events the
+    C entry point records around each launch, the bound for this launch's
+    cells and bytes, and its row loop's SASS."""
+    from fgdp_tpu_torch.ops import kswv
+    from fgdp_tpu_torch.probes import KSWV_OPS_PER_CELL
+
+    opt, pen = kswv_pen()
+    got, path, plain_ms = kswv_hold(tag, args)
+    ms = timed_ms("kswv", lambda: kswv.kswv_forward_kernel(*args, **pen))
+    q, qlen, t, tlen = (x.cpu().numpy() for x in args)
     J, QP = q.shape
     TP = t.shape[1]
     cells = int(np.dot(qlen.astype(np.int64), tlen))
@@ -772,36 +780,57 @@ def kernels_kswv(dev, rates):
     b_ms, b_by = bound(nbytes, cells * KSWV_OPS_PER_CELL, rates["int32"])
     K = -(-QP // 32)
     hits = int((got[0] >= opt.min_seed_len * opt.a).sum())
-    log(f"[kswv] rescue jobs: {len(jobs)} of {KSWV_RESCUE_PAIRS} pairs "
-        f"(FR window {fr.low}-{fr.high} from the true inserts), J={J} "
-        f"QP={QP} TP={TP} (K={K}), {path} path: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.1f} ms, cells {cells}, warp rows {rows_run}, "
-        f"{cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.5f} ms ({b_by}); "
-        f"{hits} jobs score >= {opt.min_seed_len * opt.a}; equal: True")
+    log(f"[{tag}] kswv J={J} QP={QP} TP={TP} (K={K}), "
+        f"{int((qlen > 0).sum())} jobs, {path} path: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.1f} ms, cells {cells}, warp rows {rows_run}, "
+        f"{cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.5f} ms ({b_by}: "
+        f"{KSWV_OPS_PER_CELL} int32 operations a cell); {hits} jobs score "
+        f">= {opt.min_seed_len * opt.a}; equal: True")
     n = sass_row_instructions("kswv", K)
     if n:
-        log(f"[kswv] rescue: {KSWV_OPS_PER_CELL} counted int32 operations "
-            f"a cell = {KSWV_OPS_PER_CELL / 32:.2f} warp instructions a "
-            f"cell at 32 lanes; the row loop issues "
-            f"{n * rows_run / cells:.2f} a cell ({rows_run} warp rows of "
-            f"{32 * K} lane columns, {cells / rows_run:.1f} cells each); "
-            f"issuing them alone takes "
+        log(f"[{tag}] kswv: {KSWV_OPS_PER_CELL} counted int32 operations a "
+            f"cell = {KSWV_OPS_PER_CELL / 32:.2f} warp instructions a cell "
+            f"at 32 lanes; the row loop issues {n * rows_run / cells:.2f} a "
+            f"cell ({rows_run} warp rows of {32 * K} lane columns, "
+            f"{cells / rows_run:.1f} cells each); issuing them alone takes "
             f"{1e3 * n * rows_run / rates['issue']:.4f} ms")
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def kernels_kswv(dev, rates):
+    """D6 against its plain version, all four outputs exactly equal: on
+    rescue jobs made as pe_scale makes them (packed and bucketed as
+    ksw_align_local_batch packs them; timed, bounded and its SASS read
+    too), at the register path's lane edges, on the wide path and on a
+    mostly empty batch. The kernels line's row comes from a launch of
+    pe_scale's own `mem` run instead."""
+    import torch
+    from fgdp_tpu_torch.ops import kswv
+
+    opt, _ = kswv_pen()
+    kswv_jobs = load_file("tests/test_torch_cuda.py").kswv_jobs
+    card = lambda arrays: [torch.as_tensor(a, device=dev) for a in arrays]
+
+    jobs, fr = rescue_jobs(gen_genome(4_600_000, seed=0),
+                           KSWV_RESCUE_PAIRS, opt)
+    q, t, qlen, tlen = kswv._pack(jobs)
+    log(f"[kswv] rescue jobs: {len(jobs)} of {KSWV_RESCUE_PAIRS} pairs (FR "
+        f"window {fr.low}-{fr.high} from the true inserts)")
+    kswv_row("kswv", card((q, qlen, t, tlen)), rates)
     for QP in KSWV_EDGE_QPS:
-        _, path, _, _ = check(f"QP={QP}", kswv_jobs(QP, 256, QP, 512))
+        _, path, _ = kswv_hold(f"QP={QP}", card(kswv_jobs(QP, 256, QP, 512)))
         log(f"[kswv] QP={QP} (K={-(-QP // 32)}), 256 jobs: {path} path, "
             "equal: True")
-    _, path, _, _ = check("wide", kswv_jobs(400, 256, 400, 512))
+    _, path, _ = kswv_hold("wide", card(kswv_jobs(400, 256, 400, 512)))
     log(f"[kswv] wide QP=400: {path} path, equal: True")
     if path != ["wide"]:
         raise AssertionError("kswv at QP 400 did not take the wide path")
-    _, path, _, got = check("empty", kswv_jobs(3, 1024, 160, 512,
-                                               empty=0.9))
+    got, path, _ = kswv_hold("empty", card(kswv_jobs(3, 1024, 160, 512,
+                                                     empty=0.9)))
     log(f"[kswv] mostly empty batch, 1024 jobs (90% empty): {path} path, "
         f"{int((got[1] >= 0).sum())} jobs with a positive best, equal: "
         "True")
-    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
 
 
 def _index_sam(lines):
@@ -1619,12 +1648,13 @@ def pe_placement(lines, n_pairs):
             bait_right / max(bait_n, 1), bait_n)
 
 
-def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
+def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
     """BASELINE config 2's class (paired-end 150 bp reads, one card) on
     the scale phase's 4.6 Mb index: sim_pairs' pairs (seed 31) through
     `mem` in-process, then `pipeline -t min(cpu-1, 8)`, whose workers
     rescue mates on the card; then the first 256 pairs on the card and on
-    the CPU. Returns the in-process run's launches."""
+    the CPU. Returns the in-process run's launches and kswv's row of the
+    kernels line, timed on one of that run's launches."""
     import torch
     from fgdp_tpu_torch import cli
     from fgdp_tpu_torch.io import bam as bamio
@@ -1646,8 +1676,19 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
     fin0 = PROF.acc.get(WORKER_SAM, 0.0)
     lines = []
     w0 = dict(kswv.WORK)
+    # every kswv launch of the run: its card inputs and outputs, held
+    # against the plain version after the run
+    seen = []
+    real = kswv.kswv_forward_kernel
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append((args, out))
+        return out
+
     kernels.reset_launches()
     kernels.TIMED["kswv"] = []
+    kswv.kswv_forward_kernel = spy
     try:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1657,6 +1698,7 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
         wall = time.time() - t0
         k_ms = sum(a.elapsed_time(b) for a, b in kernels.TIMED["kswv"])
     finally:
+        kswv.kswv_forward_kernel = real
         kernels.TIMED.pop("kswv", None)
     launches = {k: kernels.LAUNCHES[k] for k in PE_KERNELS}
     jobs, cells = (kswv.WORK[k] - w0[k] for k in ("jobs", "cells"))
@@ -1676,6 +1718,8 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
         f"launches, {jobs} jobs, {cells} cells, {k_ms:.3f} ms of kernel "
         f"time (CUDA events its C entry point records around each launch)"
         f" = {100 * k_ms / (1e3 * wall):.4f}% of the wall")
+    row = pe_kswv_launches(seen, rates)
+    del seen
     log(f"[pe_scale] properly paired {proper:.4f}; MAPQ>=20 ends {conf}, "
         f"of which at the true position {right:.4f}; bait ends at their "
         f"true position {bait_right:.4f} of {bait_n}")
@@ -1692,10 +1736,15 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
     p0 = dict(POOL_KSWV)
     w_acc = {k: PROF.acc.get(k, 0.0) for k in ("POOL_WAIT", "SORT_FINISH")}
     kernels.reset_launches()
-    t0 = time.time()
-    n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], *fqs, "-O", out,
-                              "-t", str(workers), "-b", str(batch)])
-    wall = time.time() - t0
+    # the pool's workers record events around their launches
+    kernels.TIMED["kswv"] = []
+    try:
+        t0 = time.time()
+        n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], *fqs, "-O",
+                                  out, "-t", str(workers), "-b", str(batch)])
+        wall = time.time() - t0
+    finally:
+        kernels.TIMED.pop("kswv", None)
     pool = {k: POOL_KSWV[k] - p0[k] for k in POOL_KSWV}
     waits = {k: round(PROF.acc.get(k, 0.0) - w_acc[k], 2) for k in w_acc}
     log(f"[pe_scale] pipeline: {n_pairs} pairs -> {nrec} records, {ndup} "
@@ -1732,21 +1781,42 @@ def phase_pe_scale(dev, tmp, ctx, n_pairs, batch):
     if card != cpu:
         raise AssertionError("the card's SAM of the first 256 pairs "
                              "differs from the CPU run")
-    return launches
+    return launches, row
+
+
+def pe_kswv_launches(seen, rates):
+    """pe_scale `mem`'s kswv launches, each (inputs, outputs) on the card:
+    their (J, QP, TP), every launch's outputs held exactly against the
+    plain version on its inputs, and the kernels line's row from the
+    most common shape (the launch with the most cells among them)."""
+    from collections import Counter
+
+    shape = lambda a: (a[0].shape[0], a[0].shape[1], a[2].shape[1])
+    cells = lambda a: int((a[1].long() * a[3].long()).sum())
+    hist = Counter(shape(a) for a, _ in seen)
+    log(f"[pe_scale] kswv launches by (J, QP, TP): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(hist.items())))
+    for i, (args, got) in enumerate(seen):
+        kswv_hold(f"pe_scale launch {i}", args, got)
+    log(f"[pe_scale] every kswv launch of the mem run equals the plain "
+        f"version on its inputs ({len(seen)} launches, all four outputs)")
+    top = max(hist.values())
+    args = max((a for a, _ in seen if hist[shape(a)] == top), key=cells)
+    return kswv_row("pe_scale", args, rates)
 
 
 PHASES = ("probes", "kernels", "golden", "ladder", "scale",
           "mutect_golden", "mutect_scale", "sormadup_scale",
           "pipeline_scale", "pe_scale")
-# the earlier paths' depth, halved when pe_scale came so that the whole
-# run stays near half its time limit (from 16,384 reads, 1,638
-# duplicates, 1,000,000 records). mutect_scale keeps its 300 sites, whose
-# spacing sets the span of its card-vs-CPU check (WARM_SITES)
-SCALE_READS = 8_192
-SCALE_READS = 8_192
+# the earlier paths' depth, set so that the whole run with pe_scale stays
+# well inside its time limit: scale's 12,288 reads are three batches
+# (BASELINE config 1 aligns "~10K" reads) and pipeline_scale plants a
+# duplicate for a tenth of them. mutect_scale's 300 sites' spacing sets
+# the span of its card-vs-CPU check (WARM_SITES)
+SCALE_READS = 12_288
 PE_PAIRS = 8_192
-PIPELINE_DUPS = 819
-SORMADUP_RECORDS = 500_000
+PIPELINE_DUPS = 1_228
+SORMADUP_RECORDS = 1_000_000
 
 
 def main(argv=None):
@@ -1814,8 +1884,9 @@ def main(argv=None):
                 phase_pipeline_scale(dev, tmp, ctx, 4096, PIPELINE_DUPS)
         if "pe_scale" in phases:
             with phase_clock("pe_scale"):
-                launches["kswv"] = phase_pe_scale(dev, tmp, ctx, PE_PAIRS,
-                                                  4096)["kswv"]
+                pe_launches, rows["kswv"] = phase_pe_scale(
+                    dev, rates, tmp, ctx, PE_PAIRS, 4096)
+            launches["kswv"] = pe_launches["kswv"]
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed in "
             f"{time.time() - t_start:.1f} s (partial run: no result)")

@@ -14,8 +14,6 @@ import gzip
 
 import numpy as np
 
-from ..utils import dna
-
 
 @dataclasses.dataclass
 class ReadBatch:
@@ -57,31 +55,6 @@ def parse_fastq_records(path):
             yield name, comment, seq, qual
 
 
-def records_to_batch(records, read_len: int, pad_to: int | None = None) -> ReadBatch:
-    """Pack (name, comment, seq, qual) tuples into a fixed-shape batch.
-
-    pad_to: round the batch dimension up (reads beyond n are length 0,
-    all-N, and must be masked out downstream).
-    """
-    n = len(records)
-    b = pad_to if pad_to is not None else n
-    codes = np.full((b, read_len), 4, dtype=np.uint8)
-    quals = np.zeros((b, read_len), dtype=np.uint8)
-    lengths = np.zeros(b, dtype=np.int32)
-    names, comments = [], []
-    for i, (name, comment, seq, qual) in enumerate(records):
-        c = dna.encode(seq)[:read_len]
-        codes[i, : len(c)] = c
-        if qual:
-            q = np.frombuffer(qual, dtype=np.uint8)[:read_len]
-            quals[i, : len(q)] = np.maximum(q, 33) - 33
-        lengths[i] = len(c)
-        names.append(name)
-        comments.append(comment)
-    return ReadBatch(names=names, codes=codes, quals=quals, lengths=lengths,
-                     comments=comments)
-
-
 def read_batches(path, read_len: int = 151, chunk_bp: int = 10_000_000,
                  pad_multiple: int = 512):
     """Stream ReadBatches of ~chunk_bp total bases, padded to pad_multiple,
@@ -118,24 +91,3 @@ def read_batches(path, read_len: int = 151, chunk_bp: int = 10_000_000,
                 return
     finally:
         f.close()
-
-
-def interleave_pairs(path1, path2, read_len: int = 151, chunk_bp: int = 10_000_000,
-                     pad_multiple: int = 512):
-    """Paired-end: interleave r1[i], r2[i] so mates are adjacent rows
-    (even=first, odd=second), matching the reference's paired layout."""
-    it1, it2 = parse_fastq_records(path1), parse_fastq_records(path2)
-    while True:
-        target = max(1, chunk_bp // max(read_len, 1) // 2)
-        recs = []
-        for _ in range(target):
-            r1 = next(it1, None)
-            r2 = next(it2, None)
-            if r1 is None or r2 is None:
-                break
-            recs.append(r1)
-            recs.append(r2)
-        if not recs:
-            return
-        b = -(-len(recs) // pad_multiple) * pad_multiple
-        yield records_to_batch(recs, read_len, pad_to=b)

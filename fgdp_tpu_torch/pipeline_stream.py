@@ -403,7 +403,8 @@ _W_OPT = None
 _W_DEVICE = None
 # the paired-end workers' kswv work, summed over the batches the pools'
 # collect() returned: launches, jobs, DP cells, and the kernel ms of the
-# CUDA events the kernel's C entry point records around each launch
+# CUDA events the kernel's C entry point records around each launch (0
+# unless the pool's caller asked for events)
 POOL_KSWV = {"launches": 0, "jobs": 0, "cells": 0, "ms": 0.0}
 
 
@@ -413,10 +414,11 @@ def _worker_warm(dt):
     return 0
 
 
-def _finalize_worker_init(pref_path, opt, device):
+def _finalize_worker_init(pref_path, opt, device, timed=False):
     """Load the reference; with a CUDA `device`, open the card and bind
     the kswv kernel the parent built (raises when the card cannot be
-    opened: a paired-end batch never falls back to the CPU)."""
+    opened: a paired-end batch never falls back to the CPU), and record
+    events around its launches when `timed`."""
     global _W_PREF, _W_OPT, _W_DEVICE
     from .index.reference import PackedReference
     from .ops import kernels
@@ -430,7 +432,8 @@ def _finalize_worker_init(pref_path, opt, device):
                                " no CUDA device is available")
         torch.zeros(1, device=_W_DEVICE)
         kernels.load("kswv")
-        kernels.TIMED["kswv"] = []
+        if timed:
+            kernels.TIMED["kswv"] = []
 
 
 def _finalize_worker_run(args):
@@ -459,7 +462,9 @@ class FinalizePool:
     `device` is the device of paired-end batches' mate rescue (the
     aligner's); a pool without one finalizes single-end batches only.
     With the card as `device`, the kernels are built here, before the
-    workers start, and each worker opens the card."""
+    workers start, and each worker opens the card; the workers record
+    events around their kswv launches if the caller had asked for them
+    (`kernels.TIMED["kswv"]`) when it built the pool."""
 
     def __init__(self, pref_path: str, opt, workers: int, device=None):
         import concurrent.futures
@@ -474,7 +479,8 @@ class FinalizePool:
             max_workers=workers, mp_context=multiprocessing.get_context(
                 "spawn"),
             initializer=_finalize_worker_init,
-            initargs=(pref_path, opt, self.device))
+            initargs=(pref_path, opt, self.device,
+                      "kswv" in kernels.TIMED))
         # force every worker to spawn now (spawn is lazy)
         list(self._ex.map(_worker_warm, [0.2] * workers))
 

@@ -25,12 +25,13 @@ INT32_LANES = 64
 SW_OPS_PER_CELL = 20
 CHAIN_OPS_PER_SLOT = 6    # per seed step and chain slot (chain_loop.cuh)
 # int32 per local-SW cell of the JAX package's kswv _forward, counted from
-# its code: the score (2 compares, an or, an equality, 2 selects), the
-# mask's select, M (1), max(M, E, 0) (2), v (a subtract, a multiply, an
-# add), the cummax (1), F (3), H (3 maxima and the mask's select), E (2
-# subtracts, 2 maxima), the row max (1), the best row's and the inactive
-# rows' selects (2)
-KSWV_OPS_PER_CELL = 28
+# its code as the operations on [J, QP] arrays in a row step (those on
+# [1, QP] or [J, 1] arrays, such as jq * e_ins or tc >= 4, are not a
+# cell's): the score (qc >= 4, the or, qc == tc, 2 selects), the mask's
+# select, M (1), max(M, E, 0) (2), v (2 adds), the cummax (1), F (1), H
+# (3 maxima and the mask's select), E (2 subtracts, 2 maxima), the row
+# max (1), the best row's and the inactive rows' selects (2)
+KSWV_OPS_PER_CELL = 24
 # float32 per PairHMM cell (pairhmm.cuh): 5 for M, 3 for X, 1 for u, 6
 # compares and selects of the match prior, and 2 per doubling of the scan
 HMM_OPS_PER_CELL = 15

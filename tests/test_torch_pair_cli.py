@@ -3,7 +3,7 @@ fgdp_tpu's CLI: the same SAM in-process and with a 2-worker finalize
 pool, the same BAM and BAI bytes through `pipeline -t 2`, on the golden
 pairs with five second ends baited (every 12th base changed, so only
 mate rescue places them: tests/test_torch_pair.py); and the paired
-FASTQ readers equal to fgdp_tpu's."""
+FASTQ reader equal to fgdp_tpu's."""
 
 import os
 
@@ -11,9 +11,7 @@ import numpy as np
 import pytest
 
 from fgdp_tpu import cli as jcli
-from fgdp_tpu.io import fastq as jfastq
 from fgdp_tpu_torch import cli
-from fgdp_tpu_torch.io import fastq
 from fgdp_tpu_torch.pipeline_stream import POOL_KSWV
 
 from test_torch_pair import BAIT_PAIRS
@@ -40,21 +38,13 @@ def baited_fastqs(tmp_path_factory):
 
 def test_read_batches_keep_pairs_whole(baited_fastqs):
     """Batches of an odd read count take batch // 2 pairs, interleaved,
-    as fgdp_tpu's CLI reader does; interleave_pairs is fgdp_tpu's."""
+    as fgdp_tpu's CLI reader does."""
     got = list(cli.read_batches(list(baited_fastqs), 9))
     want = list(jcli._read_batches(list(baited_fastqs), 9))
     assert len(got) == len(want) == 25
     for a, b in zip(got, want):
         assert a[0] == b[0] and a[2] == b[2] and len(a[0]) == 8
         assert all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
-    kw = dict(read_len=100, chunk_bp=3000, pad_multiple=16)
-    got = list(fastq.interleave_pairs(*baited_fastqs, **kw))
-    want = list(jfastq.interleave_pairs(*baited_fastqs, **kw))
-    assert len(got) == len(want) == 7
-    for a, b in zip(got, want):
-        assert a.names == b.names and a.comments == b.comments
-        for f in ("codes", "quals", "lengths"):
-            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
 def test_cli_paired_runs_equal_jax(baited_fastqs, tmp_path):
