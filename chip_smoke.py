@@ -65,7 +65,7 @@ fails loudly:
               reads, flags aside; reads/s end to end; the chain loop's
               launches and summed kernel time
  12. pe_scale BASELINE config 2's class on the scale phase's index:
-              8,192 simulated pairs of 2 x 151 bp (insert N(400, 40), both
+              4,096 simulated pairs of 2 x 151 bp (insert N(400, 40), both
               strands, sim_reads' errors, 5% of the pairs with one end
               baited: every 12th base changed, so only mate rescue places
               it) through `mem` in-process and `pipeline -t min(cpu-1, 8)`
@@ -77,6 +77,24 @@ fails loudly:
               the share properly paired, placement of confident ends and
               of the bait ends, the BAM's count and order, and the first
               256 pairs' SAM on the card equal to the port's CPU run
+ 13. mutect_options `mutect` on the 120x fixture tests/golden/mutect_cnn
+              ungated (sites equal golden_nogate.vcf) and with
+              --deep-model, a seeded TorchScript gate saved by the run
+              (regions gated, kept and dropped, the forward's ms, every
+              row's keep/drop decision and score equal to the CPU
+              forward's on the same rows); then --bqsr-tumor/--bqsr-normal
+              on tests/golden/mutect, the card's VCF equal to the port's
+              CPU VCF
+ 14. sharded  the contig-sharded aligner (two shards of
+              tests/test_sharded_index.py's 120 kb + 150 kb random
+              contigs) at full batch width (4,096 reads), 2,048
+              single-end reads and 2,048 pairs: SAM equal to the joint
+              Aligner's on the card (a read the joint ladder leaves
+              overflowed, where it differs, equal to the joint Aligner's
+              on the batch without the other overflowed reads), reads/s
+              of both, P1, P2 and D6 launches; then NCCL at world
+              size 1: sharded duplicate marking and coordinate sort of
+              1,000,000 records' keys equal to the single-device engine
 Then one JSON line of the kernels, the card line, and the result line.
 """
 
@@ -1805,18 +1823,406 @@ def pe_kswv_launches(seen, rates):
     return kswv_row("pe_scale", args, rates)
 
 
+def bqsr_report():
+    """tests/test_bqsr.py's REPORT, read from the file's source (the test
+    module imports the JAX package)."""
+    import ast
+    with open(os.path.join(ROOT, "tests", "test_bqsr.py")) as f:
+        tree = ast.parse(f.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "REPORT":
+            return ast.literal_eval(node.value)
+    raise AssertionError("tests/test_bqsr.py has no REPORT")
+
+
+def vcf_sites(path):
+    """(CHROM, POS, REF, ALT) of a VCF's records, as
+    tests/test_cnn_gate.py's A/B compares them."""
+    with open(path) as f:
+        return {tuple(ln.split("\t")[:2] + ln.split("\t")[3:5])
+                for ln in f if ln.strip() and not ln.startswith("#")}
+
+
+def vcf_max_diff(path_a, path_b):
+    """The records' largest number difference (relative above 1), or
+    None when the records differ in anything but numbers."""
+    import re
+    num = r"-?\d+(?:\.\d+)?(?:e-?\d+)?"
+    rec = lambda p: [ln for ln in open(p).read().splitlines()
+                     if not ln.startswith("##")]
+    a, b = rec(path_a), rec(path_b)
+    if len(a) != len(b) or any(re.sub(num, "#", x) != re.sub(num, "#", y)
+                               for x, y in zip(a, b)):
+        return None
+    return max((abs(float(u) - float(v)) / max(1.0, abs(float(u)))
+                for x, y in zip(a, b)
+                for u, v in zip(re.findall(num, x), re.findall(num, y))),
+               default=0.0)
+
+
+# the gate's scores on the card against the CPU forward of the same rows:
+# float32's step just below 1.0 is 6e-8, so summation order moves a score
+# by a few of them; a reduced-precision forward keeps 10 (TF32) or 7
+# (bfloat16) mantissa bits, steps of 1e-3 or more
+GATE_SCORE_TOL = 1e-6
+
+
+def phase_mutect_options(dev, tmp):
+    """`mutect`'s options on the card: ungated on the 120x fixture
+    tests/golden/mutect_cnn (sites equal golden_nogate.vcf); with
+    --deep-model, a seeded TorchScript gate saved here (every forward's
+    rows held against the CPU forward of the same rows: the same
+    keep/drop decision and a score within GATE_SCORE_TOL, row for row);
+    and with --bqsr-tumor/--bqsr-normal on tests/golden/mutect, the
+    card's VCF equal to the port's CPU VCF (numbers within 1e-3)."""
+    import torch
+    from fgdp_tpu_torch import cli
+    from fgdp_tpu_torch.call import cnn_filter
+    from fgdp_tpu_torch.ops import kernels
+
+    helpers = load_file("tests/test_torch_cuda.py")
+    fix = os.path.join(GOLDEN, "mutect_cnn")
+    base = ["mutect", "-R", os.path.join(fix, "ref.fa"),
+            "-I", os.path.join(fix, "tumor.bam"),
+            "-N", os.path.join(fix, "normal.bam")]
+    nogate = os.path.join(tmp, "mo_nogate.vcf")
+    kernels.reset_launches()
+    t0 = time.time()
+    cli.main(base + ["-O", nogate])
+    wall = time.time() - t0
+    want = vcf_sites(os.path.join(fix, "golden_nogate.vcf"))
+    got = vcf_sites(nogate)
+    log(f"[mutect_options] ungated mutect_cnn: {len(got)} sites in "
+        f"{wall:.2f} s, pairhmm launches {kernels.LAUNCHES['pairhmm']}; "
+        f"sites equal golden_nogate.vcf's {len(want)}: {got == want}")
+    if got != want:
+        raise AssertionError(f"ungated sites differ from golden_nogate.vcf:"
+                             f" {sorted(got ^ want)}")
+
+    model = helpers.gate_model(os.path.join(tmp, "gate.pt"), 2, scale=400.0)
+    seen = []
+    inner = cnn_filter.CnnFilter.scores
+
+    def spy(self, inputs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = inner(self, inputs)
+        ev[1].record()
+        ev[1].synchronize()
+        seen.append((inputs, out, ev[0].elapsed_time(ev[1])))
+        return out
+
+    gated = os.path.join(tmp, "mo_gate.vcf")
+    cnn_filter.CnnFilter.scores = spy
+    try:
+        kernels.reset_launches()
+        t0 = time.time()
+        cli.main(base + ["-O", gated, "--deep-model", model])
+        wall = time.time() - t0
+    finally:
+        cnn_filter.CnnFilter.scores = inner
+    p3 = kernels.LAUNCHES["pairhmm"]
+    cpu = cnn_filter.CnnFilter(model, device="cpu")
+    rows = sum(len(x) for x, _, _ in seen)
+    kept = sum(bool(cnn_filter.passes(s).any()) for _, s, _ in seen)
+    differ, far, err = 0, 0, 0.0
+    for i, (x, card_s, _) in enumerate(seen):
+        cpu_s = cpu.scores(x)
+        err = max(err, float(np.abs(card_s - cpu_s).max()))
+        off = np.abs(card_s - cpu_s) > GATE_SCORE_TOL
+        for r in np.flatnonzero(off | (cnn_filter.passes(card_s)
+                                       != cnn_filter.passes(cpu_s))):
+            differ += int(cnn_filter.passes(card_s[r])
+                          != cnn_filter.passes(cpu_s[r]))
+            far += int(off[r])
+            log(f"[mutect_options] gated region {i} row {r}: card "
+                f"{card_s[r]!r}, CPU {cpu_s[r]!r} (threshold "
+                f"{cnn_filter.THRESHOLD!r})")
+    ms = [m for _, _, m in seen]
+    g_sites = vcf_sites(gated)
+    log(f"[mutect_options] --deep-model: {len(seen)} regions gated "
+        f"({rows} rows), {kept} kept, {len(seen) - kept} dropped; "
+        f"{len(g_sites)} sites in {wall:.2f} s, pairhmm launches {p3}; "
+        f"forward (rows to the card, forward, scores back; CUDA events) "
+        f"{sum(ms):.3f} ms over {len(ms)} calls, "
+        f"{np.median(ms) if ms else 0:.3f} ms median; card decisions equal "
+        f"the CPU forward's on every row: {differ == 0}; scores within "
+        f"{GATE_SCORE_TOL:g} of the CPU's: {far == 0} (largest difference "
+        f"{err!r})")
+    if differ or far:
+        raise AssertionError(f"{differ} gate rows decided differently on "
+                             f"the card and the CPU, {far} scored more than "
+                             f"{GATE_SCORE_TOL:g} apart")
+    if not (seen and 0 < kept < len(seen) and g_sites < got and p3 > 0):
+        raise AssertionError("the gate did not keep some regions and drop "
+                             "others on mutect_cnn")
+
+    mt = os.path.join(GOLDEN, "mutect")
+    report = bqsr_report()
+    flags = []
+    for rg in ("tumor", "normal"):
+        path = os.path.join(tmp, f"{rg}.recal")
+        with open(path, "w") as f:
+            f.write(helpers.recal_report(report, rg))
+        flags += [f"--bqsr-{rg}", path]
+    base = ["mutect", "-R", os.path.join(mt, "ref.fa"),
+            "-I", os.path.join(mt, "tumor.bam"),
+            "-N", os.path.join(mt, "normal.bam")] + flags
+    out = {}
+    for d in ("cuda", "cpu"):
+        out[d] = os.path.join(tmp, f"mo_bqsr_{d}.vcf")
+        kernels.reset_launches()
+        t0 = time.time()
+        cli.main(base + ["-O", out[d], "--device", d])
+        log(f"[mutect_options] --bqsr-tumor/--bqsr-normal on {d}: "
+            f"{len(vcf_sites(out[d]))} sites in {time.time() - t0:.2f} s, "
+            f"pairhmm launches {kernels.LAUNCHES['pairhmm']}")
+        if d == "cuda":
+            p3 = kernels.LAUNCHES["pairhmm"]
+    diff = vcf_max_diff(out["cuda"], out["cpu"])
+    with open(out["cuda"]) as f:
+        recal = "MBQ=37" not in f.read()
+    log(f"[mutect_options] BQSR card VCF equal to the CPU's, numbers "
+        f"within 1e-3: {diff is not None and diff <= 1e-3} (largest "
+        f"difference {diff}); no site keeps quality 37: {recal}")
+    if diff is None or diff > 1e-3 or not recal or p3 <= 0:
+        raise AssertionError("BQSR mutect on the card differs from the CPU")
+
+
+def by_qname(lines):
+    """SAM records grouped by QNAME (a read's or a pair's lines)."""
+    out = {}
+    for ln in lines:
+        out.setdefault(ln.split("\t", 1)[0], []).append(ln)
+    return out
+
+
+def two_contig_pairs(pref, n_pairs, L):
+    """sim_pairs' pairs from each of the reference's two contigs in
+    turn (n_pairs / 2 each, seeds 41 and 43), interleaved [r1_0, r2_0,
+    ...] under unique names."""
+    names, seqs = [], []
+    for cid, seed in ((0, 41), (1, 43)):
+        lo, hi = int(pref.offsets[cid]), int(pref.offsets[cid + 1])
+        for name, r1, r2 in sim_pairs(pref.codes[lo:hi], n_pairs // 2, L,
+                                      seed=seed):
+            names += [f"c{cid}{name}"] * 2
+            seqs += [np.asarray(r1, np.int64), np.asarray(r2, np.int64)]
+    return names, seqs
+
+
+def sortdup_keys(rng, nd, ns, ref_len):
+    """Duplicate-marking keys as tests/test_sortdup_sharded.py's _mk_args
+    makes them (every 7th double and single copies its neighbour's key,
+    some singles land on double ends), as int64 tensors' numpy."""
+    def dup_some(a):
+        a = a.copy()
+        a[1::7] = a[0::7][:len(a[1::7])]
+        return a
+    p5a = dup_some(rng.integers(0, ref_len // 2, nd))
+    p5b = dup_some(p5a + rng.integers(50, 500, nd))
+    orient = dup_some(rng.integers(0, 4, nd))
+    s_p5 = dup_some(rng.integers(0, ref_len // 2, ns))
+    s_rev = np.where(np.arange(ns) % 2 == 0, 3, 0)
+    k = ns // 64
+    s_p5[:k] = p5a[:k]
+    s_rev[:k] = np.where(orient[:k] >= 2, 3, 0)
+    i32 = lambda n, hi: rng.integers(0, hi, n).astype(np.int32)
+    return dict(dbl_p5a=p5a, dbl_orient=orient.astype(np.int32),
+                dbl_p5b=p5b, dbl_score=i32(nd, 1000),
+                dbl_tile=i32(nd, 100), dbl_x=i32(nd, 10000),
+                dbl_y=i32(nd, 10000), dbl_valid=rng.random(nd) < 0.99,
+                sgl_p5=s_p5, sgl_rev=s_rev.astype(np.int32),
+                sgl_score=i32(ns, 1000), sgl_tile=i32(ns, 100),
+                sgl_x=i32(ns, 10000), sgl_y=i32(ns, 10000),
+                sgl_valid=rng.random(ns) < 0.99)
+
+
+def phase_sharded(dev, tmp, n_reads, n_pairs):
+    """The contig-sharded aligner on the card at full batch width:
+    tests/test_sharded_index.py's two random contigs (120 kb + 150 kb,
+    seed 7) in two shards; n_reads single-end reads and n_pairs pairs
+    (sim_pairs', 5% with a baited end), SAM equal to the joint Aligner's
+    on the card for every read (pair) the joint run's ladder resolves.
+    The records of a read the joint ladder leaves overflowed depend on
+    the reads that share its escalation buckets, which the shards fill
+    differently (ROADMAP queue 3): each that differs is held against the
+    joint Aligner on the batch without the other overflowed reads.
+    Reads/s of both, P1, P2 and D6 launches of the sharded runs. Then
+    NCCL at world size 1: sharded duplicate marking and coordinate sort
+    of 1,000,000 records' keys equal to the single-device engine on the
+    card."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from fgdp_tpu_torch.config import BatchShapes
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.ops import kernels
+    from fgdp_tpu_torch.parallel import distributed as D
+    from fgdp_tpu_torch.parallel import sortdup_sharded as shd
+    from fgdp_tpu_torch.parallel.sharded_index import ShardedAligner
+    from fgdp_tpu_torch.pipeline import Aligner
+    from fgdp_tpu_torch.sortdup import engine
+
+    helpers = load_file("tests/test_torch_cuda.py")
+    L = 151
+    pref, make = helpers.two_contigs(120_000, 150_000, L)
+    names, seqs = make(n_reads)
+    pnames, pseqs = two_contig_pairs(pref, n_pairs, L)
+    shapes = BatchShapes(batch_reads=max(n_reads, 2 * n_pairs))
+    t0 = time.time()
+    sharded = ShardedAligner(pref, 2, shapes=shapes, device=dev)
+    joint = Aligner(pref, FMIndex.build(pref.codes), shapes=shapes,
+                    device=dev)
+    log(f"[sharded] {pref.l_pac} bp in {len(sharded.shards)} shards "
+        f"{sharded.groups}; shard and joint indexes in "
+        f"{time.time() - t0:.1f} s; batch {shapes.batch_reads}")
+    out, rate, left = {}, {}, []
+    inner = joint._device_regs
+
+    def spy(seq_codes):
+        regs = inner(seq_codes)
+        left.append(regs["overflow"])
+        return regs
+
+    joint._device_regs = spy
+    for name, al in (("sharded", sharded), ("joint", joint)):
+        kernels.reset_launches()
+        for mode, fn, args in (("SE", al.align_batch, (names, seqs)),
+                               ("PE", al.align_pairs, (pnames, pseqs))):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[name, mode] = fn(*args)
+            torch.cuda.synchronize()
+            rate[name, mode] = len(args[1]) / (time.time() - t0)
+        launches = {k: kernels.LAUNCHES[k] for k in PE_KERNELS}
+        esc = sum(sh.esc_reads for sh in sharded.shards) \
+            if name == "sharded" else joint.esc_reads
+        log(f"[sharded] {name}: SE {rate[name, 'SE']:.1f} reads/s, PE "
+            f"{rate[name, 'PE']:.1f} reads/s ({len(seqs)} reads, "
+            f"{len(pseqs) // 2} pairs); escalated reads {esc}; launches "
+            f"{launches}")
+        if name == "sharded":
+            sh_launches = launches
+    cut = {"SE": {names[i] for i in np.flatnonzero(left[0])},
+           "PE": {pnames[i] for i in np.flatnonzero(left[1])}}
+    bad = 0
+    for m, fn, nm, sq in (("SE", joint.align_batch, names, seqs),
+                          ("PE", joint.align_pairs, pnames, pseqs)):
+        a, b = (by_qname(out[k, m]) for k in ("sharded", "joint"))
+        differ = {q for q in a.keys() | b.keys() if a.get(q) != b.get(q)}
+        odd = differ & cut[m]
+        unit = "reads" if m == "SE" else "pairs"
+        log(f"[sharded] {m} SAM equal to the joint Aligner's: "
+            f"{out['sharded', m] == out['joint', m]}; for the "
+            f"{len(a.keys() - cut[m])} {unit} the joint ladder resolves: "
+            f"{not differ - cut[m]}; of the {len(cut[m])} it leaves "
+            f"overflowed, {len(odd)} differ {sorted(odd)[:4]}")
+        bad += len(differ - cut[m])
+        if not odd:
+            continue
+        # witness for those: the joint aligner on the batch without the
+        # other overflowed reads, whose ladder buckets they no longer share
+        keep = [i for i, q in enumerate(nm) if q not in cut[m] - odd]
+        w = by_qname(fn([nm[i] for i in keep], [sq[i] for i in keep]))
+        sided = {q for q in odd if w.get(q) == a.get(q)}
+        bad += len(odd - sided)
+        log(f"[sharded] witness: the joint Aligner on the {m} batch without "
+            f"the {len(cut[m] - odd)} other {unit} its ladder leaves "
+            f"overflowed ({len(keep)} reads) gives {len(sided)} of the "
+            f"{len(odd)} differing {unit} the sharded records "
+            f"{sorted(sided)[:4]}; the rest of that batch equal to the "
+            f"joint run's: {all(w[q] == b[q] for q in w.keys() - odd)}")
+    placed = sum(ln.split("\t")[2] != "*" for ln in out["sharded", "SE"]
+                 if not int(ln.split("\t")[1]) & 0x900)
+    log(f"[sharded] {placed}/{len(seqs)} SE reads placed")
+    if bad or placed < 0.95 * len(seqs):
+        raise AssertionError("the sharded aligner's SAM differs from the "
+                             "joint aligner's")
+    if min(sh_launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the sharded "
+                             f"path: {sh_launches}")
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    backend = D.backend_for(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = D.global_mesh({"sp": 1}, device=dev)
+        # the communicator is set up at the first collective: outside
+        # the timed calls
+        t0 = time.time()
+        dist.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        rng = np.random.default_rng(53)
+        ref_len = CHR20_LEN
+        keys = sortdup_keys(rng, 400_000, 200_000, ref_len)
+        t = {k: torch.as_tensor(v, device=dev) for k, v in keys.items()}
+        n_rec = 2 * 400_000 + 200_000
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dd, ds, ovf = shd.sharded_mark_duplicates(
+            mesh, dict(t, ref_len=ref_len), 2 * ref_len)
+        torch.cuda.synchronize()
+        t_sh = time.time() - t0
+        t0 = time.time()
+        wd, ws = engine.mark_duplicates(**t, ref_len=ref_len)
+        torch.cuda.synchronize()
+        t_one = time.time() - t0
+        dup_same = bool(dd.equal(wd) and ds.equal(ws)) and not ovf
+        uc = torch.as_tensor(rng.integers(0, 2 * ref_len, 1_000_000),
+                             device=dev)
+        uc[1::9] = uc[0::9][:len(uc[1::9])]
+        valid = torch.as_tensor(rng.random(1_000_000) < 0.99, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        order, sovf = shd.sharded_coordinate_sort(mesh, uc, valid,
+                                                  2 * ref_len)
+        torch.cuda.synchronize()
+        s_sh = time.time() - t0
+        t0 = time.time()
+        want = engine.coordinate_sort_order(uc, valid)[:int(valid.sum())]
+        torch.cuda.synchronize()
+        s_one = time.time() - t0
+        sort_same = bool(order.equal(want)) and not sovf
+    finally:
+        dist.destroy_process_group()
+    log(f"[sharded] {backend} world size 1: the first collective (the "
+        f"communicator's set-up) {1e3 * t_init:.1f} ms")
+    log(f"[sharded] {backend} world size 1: duplicate marking of {n_rec} "
+        f"records' keys {1e3 * t_sh:.1f} ms sharded, {1e3 * t_one:.1f} ms "
+        f"single-device; {int(wd.sum())} + {int(ws.sum())} duplicates, "
+        f"flags equal: {dup_same}; coordinate sort of 1000000 records "
+        f"{1e3 * s_sh:.1f} ms sharded, {1e3 * s_one:.1f} ms single-device, "
+        f"order equal: {sort_same}")
+    if not (dup_same and sort_same) or backend != "nccl":
+        raise AssertionError("sharded sort + duplicate marking over NCCL "
+                             "differs from the single-device engine")
+    return sh_launches
+
+
 PHASES = ("probes", "kernels", "golden", "ladder", "scale",
           "mutect_golden", "mutect_scale", "sormadup_scale",
-          "pipeline_scale", "pe_scale")
-# the earlier paths' depth, set so that the whole run with pe_scale stays
-# well inside its time limit: scale's 12,288 reads are three batches
-# (BASELINE config 1 aligns "~10K" reads) and pipeline_scale plants a
-# duplicate for a tenth of them. mutect_scale's 300 sites' spacing sets
-# the span of its card-vs-CPU check (WARM_SITES)
+          "pipeline_scale", "pe_scale", "mutect_options", "sharded")
+# the earlier paths' depth, set so that the whole run with pe_scale,
+# mutect_options and sharded stays well inside its time limit: scale's
+# 12,288 reads are three batches (BASELINE config 1 aligns "~10K" reads)
+# and pipeline_scale plants a duplicate for a tenth of them; pe_scale's
+# 8,192 pairs are four batches. mutect_scale's 300 sites' spacing sets
+# the span of its card-vs-CPU check (WARM_SITES). The sharded phase's
+# shards escalate every read of the other contig, so its single-end set
+# is one half batch (2,048 reads, batch 4,096) beside 2,048 pairs
 SCALE_READS = 12_288
 PE_PAIRS = 8_192
 PIPELINE_DUPS = 1_228
 SORMADUP_RECORDS = 1_000_000
+SHARDED_READS = 2_048
+SHARDED_PAIRS = 2_048
 
 
 def main(argv=None):
@@ -1887,6 +2293,12 @@ def main(argv=None):
                 pe_launches, rows["kswv"] = phase_pe_scale(
                     dev, rates, tmp, ctx, PE_PAIRS, 4096)
             launches["kswv"] = pe_launches["kswv"]
+        if "mutect_options" in phases:
+            with phase_clock("mutect_options"):
+                phase_mutect_options(dev, tmp)
+        if "sharded" in phases:
+            with phase_clock("sharded"):
+                phase_sharded(dev, tmp, SHARDED_READS, SHARDED_PAIRS)
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed in "
             f"{time.time() - t_start:.1f} s (partial run: no result)")

@@ -9,8 +9,15 @@ Layering (bottom → top), mirroring fgdp_tpu:
   utils/  io/  index/   host-side foundations (+ device index tensors)
   ops/                  device ops and the kernel wrappers
   align/                seeding, chaining, extension, host finalize
-  pipeline.py           the single-end Aligner and its overflow ladder
-  cli.py                `python -m fgdp_tpu_torch index|mem`
+  call/                 mutect: host stages, PairHMM on the card, BQSR,
+                        the CNN gate
+  pipeline.py           the Aligner (single- and paired-end) and its
+                        overflow ladder
+  parallel/             the contig-sharded aligner; torch.distributed
+                        meshes, data-parallel alignment, sharded sort +
+                        duplicate marking
+  cli.py                `python -m fgdp_tpu_torch index|mem|sormadup|
+                        mutect|pipeline`
 """
 
 __version__ = "0.1.0"

@@ -452,11 +452,13 @@ def _annotate_event(pos, ref_a, alt_a, tm, nm, t_reads, n_reads):
                 tumor_fmt=t_fmt, normal_fmt=n_fmt)
 
 
-def _prepare_region_impl(ref, cfg, reg, t_reads, n_reads):
-    """Pure-host region prep (assembly + trim): module-level so the
-    region pool's workers can run it (the reference's N-thread region
-    scheduler, main.cpp:195-307 — assembly is pure Python and the
-    caller's Amdahl wall without it)."""
+def _prepare_region_impl(ref, cfg, gate, reg, t_reads, n_reads):
+    """Pure-host region prep (assembly + trim + the gate's features):
+    module-level so the region pool's workers can run it (the
+    reference's N-thread region scheduler, main.cpp:195-307 — assembly
+    is pure Python and the caller's Amdahl wall without it). With
+    `gate`, a region of more than 100 tumor reads carries the CNN gate's
+    inputs; the engine classifies them on its device before dispatch."""
     span = (reg.padded_start, reg.padded_end)
     ref_seg = ref[span[0]:span[1]].astype(np.uint8)
     if not t_reads:
@@ -533,17 +535,28 @@ def _prepare_region_impl(ref, cfg, reg, t_reads, n_reads):
         if not t_reads:
             return None
 
+    # CNN gate ("deep" mode): dense regions where NO candidate variant
+    # classifies as somatic are skipped wholesale
+    # (Mutect2Engine.cpp:213-221: `if (!mymodel.modelRefer(...))
+    # return {}` — modelRefer TRUE means keep)
+    gate_in = None
+    if gate and len(t_reads) > 100:
+        from .cnn_filter import gate_inputs
+        gate_in = gate_inputs(ref, t_reads, n_reads,
+                              [pos for (pos, _, _) in all_events])[0]
     return dict(reg=reg, span=span, ref_seg=ref_seg, t_reads=t_reads,
                 n_reads=n_reads, haps=haps, hap_bases=hap_bases,
                 hap_events=hap_events, all_events=all_events,
-                hap_cigars=hap_cigars, hap_roff=hap_roff)
+                hap_cigars=hap_cigars, hap_roff=hap_roff,
+                gate_inputs=gate_in)
 
 
 _REGION_CTX = {}
 
 
 def _region_worker_init(ref, cfg, contig="", emission=None,
-                        normal_odds=None):
+                        normal_odds=None, gate=False):
+    _REGION_CTX["gate"] = gate
     _REGION_CTX["ref"] = ref
     _REGION_CTX["cfg"] = cfg
     _REGION_CTX["contig"] = contig
@@ -553,7 +566,8 @@ def _region_worker_init(ref, cfg, contig="", emission=None,
 
 def _region_worker_prepare(reg, t_reads, n_reads):
     return _prepare_region_impl(_REGION_CTX["ref"], _REGION_CTX["cfg"],
-                                reg, t_reads, n_reads)
+                                _REGION_CTX["gate"], reg, t_reads,
+                                n_reads)
 
 
 def _region_worker_finish(args):
@@ -565,15 +579,23 @@ def _region_worker_finish(args):
 
 
 class Mutect2Engine:
-    """One contig's caller. `device` is where the PairHMM runs: the CUDA
-    card by default (raises without one), the CPU only when asked."""
+    """One contig's caller. `device` is where the PairHMM and the CNN
+    gate's forward run: the CUDA card by default (raises without one),
+    the CPU only when asked. `cnn_model_path` turns the gate on."""
 
     def __init__(self, ref_codes, contig_name, cfg: CallConfig | None = None,
                  emission_log10_odds=DEFAULT_EMISSION_LOG10_ODDS,
                  normal_log10_odds=DEFAULT_NORMAL_LOG10_ODDS,
-                 region_workers: int = 0, device=None):
+                 cnn_model_path=None, region_workers: int = 0,
+                 device=None):
         from ..utils.device import resolve_device
         self.device = resolve_device(device)
+        self.cnn = None
+        if cnn_model_path:
+            from .cnn_filter import CnnFilter
+            self.cnn = CnnFilter(cnn_model_path, self.device)
+        self.gated_regions = 0      # regions the gate classified
+        self.gate_dropped = 0       # ... and dropped
         self.ref = np.asarray(ref_codes, np.uint8)
         self.contig = contig_name
         self.cfg = cfg or CallConfig()
@@ -600,7 +622,7 @@ class Mutect2Engine:
                 mp_context=mp.get_context("spawn"),
                 initializer=_region_worker_init,
                 initargs=(self.ref, self.cfg, self.contig, self.emission,
-                          self.normal_odds))
+                          self.normal_odds, self.cnn is not None))
         return self._region_pool
 
     def close(self):
@@ -673,7 +695,7 @@ class Mutect2Engine:
         def drain(force):
             while prep_q and (force or len(prep_q) > AHEAD
                               or prep_q[0].done()):
-                prep = prep_q.popleft().result()
+                prep = self._gate(prep_q.popleft().result())
                 if prep is not None:
                     pending.append((prep, self._dispatch_region(prep)))
                 while len(pending) >= DEPTH:
@@ -708,7 +730,8 @@ class Mutect2Engine:
                         t_index.span(*span), n_index.span(*span)))
                     drain(False)
                     continue
-                prep = self._prepare_region(reg, t_index, n_index)
+                prep = self._gate(self._prepare_region(reg, t_index,
+                                                       n_index))
                 if prep is not None:
                     pending.append((prep, self._dispatch_region(prep)))
                 while len(pending) >= DEPTH:
@@ -722,13 +745,26 @@ class Mutect2Engine:
         return calls
 
     def _prepare_region(self, reg, t_index, n_index):
-        """Host stage: reads, assembly, events. Returns the region
-        context dict or None when nothing to call."""
+        """Host stage: reads, assembly, events, the gate's features.
+        Returns the region context dict or None when nothing to call."""
         span = (reg.padded_start, reg.padded_end)
         t_reads = t_index.span(*span)
         n_reads = n_index.span(*span)
-        return _prepare_region_impl(self.ref, self.cfg, reg, t_reads,
+        return _prepare_region_impl(self.ref, self.cfg,
+                                    self.cnn is not None, reg, t_reads,
                                     n_reads)
+
+    def _gate(self, prep):
+        """The CNN gate's decision on a prepared region, one forward on
+        the engine's device: the region, or None when the gate drops
+        it."""
+        if prep is None or prep["gate_inputs"] is None:
+            return prep
+        self.gated_regions += 1
+        if self.cnn.keep(prep.pop("gate_inputs")):
+            return prep
+        self.gate_dropped += 1
+        return None
 
 
     def _dispatch_region(self, prep):

@@ -6,7 +6,8 @@ htslib iterator, groups pending reads by alignment start, and downsamples
 groups larger than maxReadsPerAlignmentStart (DEFAULT_MAX_COVERAGE=50,
 ReadCache.h:58; downSample ReadCache.cpp:169-184: keep reads with
 mapq > SUSPICIOUS_MAPPING_QUALITY=50, then a random cap), applying the
-palindrome-artifact clip on the fly (ReadCache.cpp:27,115).
+palindrome-artifact clip and optional BQSR transformers on the fly
+(ReadCache.cpp:27,115).
 
 This module is the framework's equivalent over io/bam.BamReader (BAI
 windowed fetch) — reads never materialize beyond one window + padding,
@@ -81,14 +82,17 @@ class StreamingReadSource:
     downsampling + transformers applied (reads are fetched once per
     window — the reference's advance-one-region semantics)."""
 
-    def __init__(self, tumor_path, normal_path=None, cfg=None):
+    def __init__(self, tumor_path, normal_path=None, cfg=None,
+                 tumor_bqsr=None, normal_bqsr=None):
         self.t_reader = BamReader(tumor_path)
         self.n_reader = BamReader(normal_path) if normal_path else None
         self.cfg = cfg
+        self.tumor_bqsr = tumor_bqsr
+        self.normal_bqsr = normal_bqsr
         self.names = self.t_reader.names
         self.lens = self.t_reader.lens
 
-    def _window_reads(self, reader, rid, lo, hi, ref_codes, seed):
+    def _window_reads(self, reader, rid, lo, hi, bqsr, ref_codes, seed):
         recs = reader.fetch(rid, lo, hi)
         reads = []
         for r in recs:
@@ -98,6 +102,9 @@ class StreamingReadSource:
         reads = downsample_reads(
             reads, self.cfg.max_reads_per_alignment_start if self.cfg
             else 50, seed=seed)
+        if bqsr is not None:
+            for r in reads:
+                bqsr.apply(r)
         for r in reads:
             palindrome_artifact_clip(r, ref_codes)
         return reads
@@ -113,11 +120,13 @@ class StreamingReadSource:
         for rstart in range(0, n, region_size):
             rend = min(rstart + region_size, n)
             lo, hi = max(rstart - padding, 0), min(rend + padding, n)
-            t = self._window_reads(self.t_reader, rid, lo, hi, ref_codes,
+            t = self._window_reads(self.t_reader, rid, lo, hi,
+                                   self.tumor_bqsr, ref_codes,
                                    seed=rstart)
             if not t:
                 continue
-            nr = self._window_reads(self.n_reader, rid, lo, hi, ref_codes,
+            nr = self._window_reads(self.n_reader, rid, lo, hi,
+                                    self.normal_bqsr, ref_codes,
                                     seed=rstart + 1) \
                 if self.n_reader is not None else []
             yield rstart, rend, _ReadIndex(t), _ReadIndex(nr)

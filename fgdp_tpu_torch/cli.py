@@ -274,9 +274,18 @@ def cmd_mutect(args):
     cfg = dataclasses.replace(CallConfig(), **overrides)
     workers = max(args.threads - 1, 0)
 
+    # --bqsr-within-mutect (reference main.cpp:204-211): recalibrate
+    # base qualities from per-sample recal tables before calling
+    from .call.bqsr import BQSRReadTransformer
+    t_bqsr = BQSRReadTransformer(args.bqsr_tumor) if args.bqsr_tumor \
+        else None
+    n_bqsr = BQSRReadTransformer(args.bqsr_normal) if args.bqsr_normal \
+        else None
+
     def engine(codes, cname):
-        return Mutect2Engine(codes, cname, cfg=cfg, region_workers=workers,
-                             device=device)
+        return Mutect2Engine(codes, cname, cfg=cfg,
+                             cnn_model_path=args.deep_model,
+                             region_workers=workers, device=device)
 
     all_calls = []
     callable_sites = 0
@@ -288,7 +297,8 @@ def cmd_mutect(args):
         # with per-alignment-start downsampling applied per window
         from .call.readcache import StreamingReadSource
 
-        src = StreamingReadSource(args.input, args.normal, cfg=cfg)
+        src = StreamingReadSource(args.input, args.normal, cfg=cfg,
+                                  tumor_bqsr=t_bqsr, normal_bqsr=n_bqsr)
         try:
             for cid, cname in enumerate(ref.names):
                 if cname not in src.names:
@@ -311,6 +321,10 @@ def cmd_mutect(args):
 
         _, _, tumor = _bam_to_read_dicts(args.input)
         normal = _bam_to_read_dicts(args.normal)[2] if args.normal else []
+        for reads, bqsr in ((tumor, t_bqsr), (normal, n_bqsr)):
+            if bqsr is not None:
+                for r in reads:
+                    bqsr.apply(r)
         for cid, cname in enumerate(ref.names):
             codes = ref.contig_codes(cid)
             t = [r for r in tumor if r["rid"] == cid]
@@ -384,7 +398,8 @@ def cmd_pipeline(args):
         cmd_mutect(argparse.Namespace(
             reference=args.reference, input=args.output,
             normal=args.normal, output=args.vcf, device=args.device,
-            threads=args.threads, pon=None, callable_depth=None,
+            threads=args.threads, pon=None, deep_model=None,
+            bqsr_tumor=None, bqsr_normal=None, callable_depth=None,
             max_prob_propagation_distance=None,
             active_probability_threshold=None,
             assembly_region_padding=None, max_assembly_region_size=None,
@@ -462,6 +477,12 @@ def main(argv=None):
     pc.add_argument("--panel-of-normals", dest="pon",
                     help="PoN VCF; matching sites get the "
                          "panel_of_normals filter")
+    pc.add_argument("--deep-model",
+                    help="TorchScript CNN gate (trans.pt); its forward "
+                         "runs on --device")
+    pc.add_argument("--bqsr-tumor", help="GATK recal table for tumor reads")
+    pc.add_argument("--bqsr-normal",
+                    help="GATK recal table for normal reads")
     # M2ArgumentCollection long options (reference main.cpp:449-531)
     pc.add_argument("--callable-depth", type=int)
     pc.add_argument("--max-prob-propagation-distance", type=int)

@@ -321,6 +321,91 @@ KSWV_PENALTIES = {"default": dict(a=1, b=4, o_del=6, e_del=1, o_ins=6,
                                  e_ins=1)}
 
 
+def recal_report(report: str, rg: str) -> str:
+    """A GATK recal table: tests/test_bqsr.py's REPORT (passed in as
+    `report`) for read group `rg`, with rows for the
+    golden fixture's quality 37 (its quals are 20, 30 and 37) so every
+    covariate table takes part."""
+    text = report.replace("rg1", rg)
+    q1 = f"{rg}        20            M          22.0000           500000"
+    extra1 = f"\n{rg}        37            M          33.0000  800000  900.00"
+    i = text.index(q1)
+    j = text.index("\n", i)
+    text = text[:j] + extra1 + text[j:]
+    cyc = f"{rg}        30            2               Cycle"
+    extra2 = "".join(
+        f"\n{rg}  37  {v}  {name}  M  30.0000  {obs}  {err}"
+        for v, name, obs, err in (("AC", "Context", 100000, "400.00"),
+                                  ("GT", "Context", 90000, "800.00"),
+                                  ("TT", "Context", 50000, "30.00"),
+                                  ("1", "Cycle", 100000, "350.00"),
+                                  ("7", "Cycle", 100000, "120.00"),
+                                  ("-3", "Cycle", 80000, "900.00"),
+                                  ("151", "Cycle", 60000, "700.00")))
+    i = text.index(cyc)
+    j = text.index("\n", i)
+    text = text[:j] + extra2 + text[j:]
+    # the dimension lines carry the row counts
+    return (text.replace("#:GATKTable:6:2:%s:%d:%s:%.4f:%d:%.2f:;",
+                         "#:GATKTable:6:3:%s:%d:%s:%.4f:%d:%.2f:;")
+            .replace("#:GATKTable:8:2:", "#:GATKTable:8:9:"))
+
+
+def two_contigs(n1, n2, L, seed=7):
+    """tests/test_sharded_index.py's reference and reads, at `n1` + `n2`
+    bp: two uniform random contigs and a maker of `n` reads of `L` bp
+    from both in turn, 1% substitutions, half reverse-complemented.
+    Returns (PackedReference, reads(n) -> (names, seqs))."""
+    from fgdp_tpu_torch.index.reference import PackedReference
+
+    rng = np.random.default_rng(seed)
+    c1 = rng.integers(0, 4, n1).astype(np.uint8)
+    c2 = rng.integers(0, 4, n2).astype(np.uint8)
+    pref = PackedReference.from_contigs(["chrA", "chrB"], [c1, c2])
+
+    def reads(n):
+        names, seqs = [], []
+        for i in range(n):
+            src, m = (c1, n1) if i % 2 == 0 else (c2, n2)
+            p = int(rng.integers(0, m - L))
+            c = src[p:p + L].astype(np.int64)
+            mut = rng.random(L) < 0.01
+            c = np.where(mut, rng.integers(0, 4, L), c)
+            if rng.random() < 0.5:
+                c = 3 - c[::-1]
+            names.append(f"r{i}")
+            seqs.append(c)
+        return names, seqs
+
+    return pref, reads
+
+
+class _GateModel(torch.nn.Module):
+    """Stand-in for the reference's CNN gate (trans.pt): [N, 31, 30]
+    pileup features -> [N, 2] softmax."""
+
+    def __init__(self, seed: int, scale: float, width: int):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.w1 = torch.nn.Parameter(
+            torch.randn(30, width, generator=g) / 30 ** 0.5)
+        self.b1 = torch.nn.Parameter(0.1 * torch.randn(width, generator=g))
+        self.w2 = torch.nn.Parameter(
+            scale * torch.randn(width, 2, generator=g) / width ** 0.5)
+
+    def forward(self, x):
+        h = torch.tanh(x @ self.w1 + self.b1).mean(dim=1)
+        return torch.softmax(h @ self.w2, dim=1)
+
+
+def gate_model(path, seed, scale=40.0, width=16):
+    """Save a seeded TorchScript gate model to `path` (returned). Its
+    weights are scaled so the softmax's first column reaches exactly 1.0
+    in float32 on some inputs and stays below it on others."""
+    torch.jit.script(_GateModel(seed, scale, width)).save(str(path))
+    return str(path)
+
+
 HEADER = ["@HD\tVN:1.6\tSO:unsorted",
           "@SQ\tSN:chr1\tLN:10000",
           "@SQ\tSN:chr2\tLN:5000"]
@@ -794,6 +879,84 @@ def test_caller_on_card_equals_cpu(dev):
         assert (a.pos, a.ref, a.alt, a.filters) == \
             (b.pos, b.ref, b.alt, b.filters)
         assert abs(a.tlod - b.tlod) <= 1e-4 and abs(a.nlod - b.nlod) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cnn_gate_on_card_equals_cpu(dev, tmp_path):
+    """The gated caller on the 120x fixture: the card's forward keeps and
+    drops the same regions as the CPU's, row for row."""
+    from fgdp_tpu_torch.call import cnn_filter
+    from fgdp_tpu_torch.call.engine import Mutect2Engine
+    from fgdp_tpu_torch.cli import _bam_to_read_dicts
+    from fgdp_tpu_torch.io.fasta import read_fasta
+
+    fix = os.path.join(HERE, "mutect_cnn")
+    model = gate_model(tmp_path / "gate.pt", 2, scale=400.0)
+    ref = read_fasta(os.path.join(fix, "ref.fa"))
+    _, _, t = _bam_to_read_dicts(os.path.join(fix, "tumor.bam"))
+    _, _, n = _bam_to_read_dicts(os.path.join(fix, "normal.bam"))
+    rows = []
+    inner = cnn_filter.CnnFilter.scores
+
+    def spy(self, inputs):
+        rows.append(inputs)
+        return inner(self, inputs)
+
+    cnn_filter.CnnFilter.scores = spy
+    try:
+        card = Mutect2Engine(ref.contig_codes(0), ref.names[0],
+                             cnn_model_path=model, device=dev)
+        on_card = card.call(t, n)
+    finally:
+        cnn_filter.CnnFilter.scores = inner
+    cpu = Mutect2Engine(ref.contig_codes(0), ref.names[0],
+                        cnn_model_path=model, device="cpu")
+    on_cpu = cpu.call(t, n)
+    assert card.gated_regions == cpu.gated_regions > 0
+    assert card.gate_dropped == cpu.gate_dropped
+    assert [(c.pos, c.ref, c.alt) for c in on_card] == \
+        [(c.pos, c.ref, c.alt) for c in on_cpu]
+    x = np.concatenate(rows)
+    a, b = card.cnn.scores(x), cpu.cnn.scores(x)
+    assert cnn_filter.passes(a).tolist() == cnn_filter.passes(b).tolist()
+
+
+@pytest.mark.cuda
+def test_sharded_aligner_on_card_equals_cpu(dev):
+    """Two shards (the golden pairs' contig and the repeat fixture's),
+    the golden pairs with five ends baited: the card's SAM equals the
+    CPU's, and P1, P2 and D6 launch."""
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.io.fasta import read_fasta
+    from fgdp_tpu_torch.io.fastq import parse_fastq_records
+    from fgdp_tpu_torch.parallel.sharded_index import ShardedAligner
+    from fgdp_tpu_torch.utils import dna
+
+    seqs_ref = [read_fasta(os.path.join(HERE, f)).contig_codes(0)
+                for f in ("ref.fa", "rep_ref.fa")]
+    pref = PackedReference.from_contigs(["chrG", "chrR"], seqs_ref)
+    names, seqs, quals = [], [], []
+    for i, (r1, r2) in enumerate(zip(*(
+            parse_fastq_records(os.path.join(HERE, f))
+            for f in ("pe1.fq", "pe2.fq")))):
+        for k, r in enumerate((r1, r2)):
+            s = dna.encode(r[2]).astype(np.int64)
+            if k == 1 and i in (3, 17, 41, 75, 95):
+                s[::12] = (s[::12] + 1) % 4
+            names.append(r[0])
+            seqs.append(s)
+            quals.append(r[3].decode())
+    shapes = BatchShapes(batch_reads=len(seqs))
+    on_card = ShardedAligner(pref, 2, shapes=shapes, device=dev)
+    on_cpu = ShardedAligner(pref, 2, shapes=shapes, device="cpu")
+    assert len(on_card.shards) == 2
+    kernels.reset_launches()
+    card_pe = on_card.align_pairs(names, seqs, quals)
+    card_se = on_card.align_batch(names, seqs, quals)
+    assert all(kernels.LAUNCHES[k] > 0
+               for k in ("sw_extend", "chain_loop", "kswv"))
+    assert card_pe == on_cpu.align_pairs(names, seqs, quals)
+    assert card_se == on_cpu.align_batch(names, seqs, quals)
 
 
 @pytest.mark.cuda

@@ -241,3 +241,62 @@ def test_paired_finalize_never_leaves_the_card(tmp_path):
                         paired=True)
     finally:
         pool.shutdown()
+
+
+def test_deep_model_never_leaves_the_card(monkeypatch, tmp_path):
+    """The CNN gate's forward runs on the card unless the caller asks
+    for the CPU: without a card the filter, an engine with the gate and
+    `mutect --deep-model` raise."""
+    from fgdp_tpu_torch import cli
+    from fgdp_tpu_torch.call.cnn_filter import CnnFilter
+    from fgdp_tpu_torch.call.engine import Mutect2Engine
+
+    from test_torch_cuda import gate_model
+
+    model = gate_model(tmp_path / "gate.pt", 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CnnFilter(model)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mutect2Engine(np.zeros(100, np.uint8), "c", cnn_model_path=model)
+    mt = os.path.join(ROOT, "tests", "golden", "mutect_cnn")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["mutect", "-R", os.path.join(mt, "ref.fa"), "-I",
+                  os.path.join(mt, "tumor.bam"), "-O", os.devnull,
+                  "--deep-model", model])
+    assert CnnFilter(model, device="cpu").device.type == "cpu"
+
+
+def test_distributed_backend_follows_the_device(monkeypatch):
+    """initialize() on a CUDA device asks for NCCL, never gloo; without a
+    card it raises before any process group starts; one process is a
+    no-op. The contig-sharded aligner defaults to the card too."""
+    import torch.distributed as dist
+
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.parallel import distributed as D
+    from fgdp_tpu_torch.parallel.sharded_index import ShardedAligner
+
+    seen = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: seen.append((backend, kw)))
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert D.initialize("localhost:1234", 2, 1) == 1
+    assert D.initialize("tcp://localhost:1234", 2, 1, device="cuda") == 1
+    assert [b for b, _ in seen] == ["nccl", "nccl"]
+    assert seen[0][1] == dict(init_method="tcp://localhost:1234",
+                              world_size=2, rank=1)
+    assert D.initialize("localhost:1234", 1, 0, device="cuda") == 0
+    assert len(seen) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            D.initialize("localhost:1234", 2, 0, device=device)
+    assert len(seen) == 2
+    assert D.initialize("localhost:1234", 2, 0, device="cpu") == 1
+    assert seen[-1][0] == "gloo"
+    pref = PackedReference.from_contigs(
+        ["a", "b"], [np.random.default_rng(0).integers(0, 4, 300)] * 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedAligner(pref)
