@@ -31,7 +31,7 @@ fails loudly:
   5. ladder   a tight-capacity batch through every escalation rung on
               the card, equal to the port's CPU run
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
-              reference (scripts/gen_genome.py's generator) and 12,288
+              reference (scripts/gen_genome.py's generator) and 8,192
               single-end 151 bp reads; launch counts, reads/s, per-stage
               ms, the SW and chain-loop kernels' summed time (CUDA
               events around every launch; the chain loop's by launch
@@ -45,7 +45,7 @@ fails loudly:
               PairHMM launches, pairs, cells and kernel ms (events the C
               entry point records around each launch), its launches by
               (R, H) bucket, the share of planted sites called, and the
-              first 10 sites' calls equal to the port's CPU run
+              first 5 sites' calls equal to the port's CPU run
   9. probes   the S1 issue-rate probe (FP32 FMA chains and their INT32
               twin) and the S2 row-gather probe: each kernel against its
               plain version (FP32 within rtol 1e-5, INT32 and the gather
@@ -59,24 +59,24 @@ fails loudly:
               and BAI byte-equal; records/s and the SD_* phase times
  11. pipeline_scale FASTQ -> sorted, duplicate-marked BAM through
               `pipeline -t min(cpu-1, 8)` on the card, on the scale
-              phase's index and reads plus 1,228 planted duplicates:
+              phase's index and reads plus 819 planted duplicates:
               record count, coordinate order, the planted duplicates
               found, and the records equal to the `mem` SAM of the same
               reads, flags aside; reads/s end to end; the chain loop's
               launches and summed kernel time
  12. pe_scale BASELINE config 2's class on the scale phase's index:
-              4,096 simulated pairs of 2 x 151 bp (insert N(400, 40), both
+              8,192 simulated pairs of 2 x 151 bp (insert N(400, 40), both
               strands, sim_reads' errors, 5% of the pairs with one end
               baited: every 12th base changed, so only mate rescue places
-              it) through `mem` in-process and `pipeline -t min(cpu-1, 8)`
-              (the workers rescue on the card): pairs/s and reads/s, kswv
+              it) through `mem` in-process and the first 4,096 through
+              `pipeline -t min(cpu-1, 8)` (the workers rescue on the card): pairs/s and reads/s, kswv
               launches, jobs, cells and kernel ms (the workers' included),
               the (J, QP, TP) of the `mem` run's kswv launches, each held
               exactly against the plain version on its inputs, and kswv's
               timed case, bound and row-loop SASS on one of them,
               the share properly paired, placement of confident ends and
               of the bait ends, the BAM's count and order, and the first
-              256 pairs' SAM on the card equal to the port's CPU run
+              128 pairs' SAM on the card equal to the port's CPU run
  13. mutect_options `mutect` on the 120x fixture tests/golden/mutect_cnn
               ungated (sites equal golden_nogate.vcf) and with
               --deep-model, a seeded TorchScript gate saved by the run
@@ -87,14 +87,26 @@ fails loudly:
               CPU VCF
  14. sharded  the contig-sharded aligner (two shards of
               tests/test_sharded_index.py's 120 kb + 150 kb random
-              contigs) at full batch width (4,096 reads), 2,048
-              single-end reads and 2,048 pairs: SAM equal to the joint
+              contigs), 1,024 single-end reads and 1,024 pairs: SAM equal to the joint
               Aligner's on the card (a read the joint ladder leaves
               overflowed, where it differs, equal to the joint Aligner's
               on the batch without the other overflowed reads), reads/s
               of both, P1, P2 and D6 launches; then NCCL at world
               size 1: sharded duplicate marking and coordinate sort of
-              1,000,000 records' keys equal to the single-device engine
+              1,000,000 records' keys equal to the single-device engine;
+              the 2-D (dp, fm) mesh: shard_index + shard_align_fn_2d on
+              the single-end batch, packed regs equal to device_align's
+ 15. engines  the fallback seeding engines on the scale phase's index and
+              its first 4,096 reads: collect_seeds on the sweep, the wave
+              machine and LCP K1 + sweep K2 (FGDP_K2_SWEEP=1) against the
+              LCP engine (ms a batch, overflowed reads, seeds equal on the
+              reads neither flags); Aligner(lcp=False) `mem` with its
+              ladder (reads/s, escalated reads, P1 and P2 launches and
+              kernel ms), SAM equal to the LCP aligner's on the reads both
+              ladders resolve; the first 256 reads' sweep SAM card vs CPU;
+              exact_search and inexact_search (z = 1) on 4,096 patterns of
+              read length, card vs CPU and against RMIndex.lookup_host
+              (runs right after scale, whose index and reads it uses)
 Then one JSON line of the kernels, the card line, and the result line.
 """
 
@@ -119,7 +131,7 @@ MUTECT_SITES = 300
 # the planted sites of mutect_scale's warm pass, run on the card and on
 # the CPU: the CPU side is the slowest span of the earlier paths (about
 # 3-4 s a site)
-WARM_SITES = 10
+WARM_SITES = 5
 MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
 PE_KERNELS = MEM_KERNELS + ("kswv",)        # and of paired-end `mem`
 
@@ -1153,6 +1165,269 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
                           aligner=aligner)
 
 
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def seed_keys(dfm, sb):
+    """A SeedBatch's slots with k normalised: an interval of one suffix
+    (s == 1) by its text position, whichever encoding the engine gave it
+    (k < -1 is the direct position -k - 2); wider intervals by their SA
+    start, which is unique. Invalid slots are zero."""
+    import torch
+    from fgdp_tpu_torch.ops import fm as fmops
+
+    S = sb.m.shape[1]
+    valid = torch.arange(S, device=sb.m.device)[None, :] < sb.count[:, None]
+    pos = torch.where(sb.k < -1, -sb.k - 2,
+                      fmops.sa_lookup(dfm, sb.k.clamp(min=0)))
+    k = torch.where(sb.s == 1, pos, sb.k)
+    return torch.stack([torch.where(valid, a, 0)
+                        for a in (sb.m, sb.n, sb.s, k)], dim=2)
+
+
+ENGINES = ("lcp", "sweep", "wave", "lcp_k2_sweep")
+N_INEXACT_CPU = 128
+
+
+def engines_seeds(dev, al, codes, lens):
+    """collect_seeds on every engine at the aligner's device_align
+    arguments: {engine: (SeedBatch, ms)}, each call synced."""
+    import torch
+    from fgdp_tpu_torch.align import seeding
+
+    sh = al.shapes
+    kw = dict(max_seeds=sh.max_smems, prev_cap=20, scale=sh.seed_scale,
+              k1_emit_cap=sh.k1_emit_cap, k3_emit_cap=sh.k3_emit_cap,
+              k2_scale=sh.k2_scale)
+    tree = dict(lcp_tree=al.lcp_tree, lcp_isa=al.lcp_isa)
+    out = {}
+    for name in ENGINES:
+        extra = {"lcp": tree, "sweep": {}, "wave": dict(use_sweep=False),
+                 "lcp_k2_sweep": tree}[name]
+        act = torch.ones(codes.shape[0], dtype=torch.bool,
+                         device=codes.device)
+        old = os.environ.pop("FGDP_K2_SWEEP", None)
+        if name == "lcp_k2_sweep":
+            os.environ["FGDP_K2_SWEEP"] = "1"
+        try:
+            _sync(dev)
+            t0 = time.time()
+            sb = seeding.collect_seeds(al.dfm, al.dref, codes, lens, act,
+                                       al._dev_opt, **kw, **extra)
+            _sync(dev)
+            out[name] = (sb, 1e3 * (time.time() - t0))
+        finally:
+            os.environ.pop("FGDP_K2_SWEEP", None)
+            if old is not None:
+                os.environ["FGDP_K2_SWEEP"] = old
+    return out
+
+
+def engines_compare(dfm, seeds):
+    """Per engine: reads it flags overflowed, reads both it and the LCP
+    engine leave clean, how many of those differ from the LCP engine's
+    seeds (count and every slot, k normalised), and how many of these
+    carry the sweep's seeds on the read instead. fgdp_tpu's LCP K2 and
+    its wave/sweep K2 can find different re-seeds on a read none of them
+    flags (ROADMAP queue 3); the sweep must then flag the read."""
+    ref = seeds["lcp"][0]
+    keys = {name: seed_keys(dfm, sb) for name, (sb, _) in seeds.items()}
+
+    def same_as(name, other):
+        sb, ob = seeds[name][0], seeds[other][0]
+        if sb.m.shape != ob.m.shape:
+            raise AssertionError(f"{name} and {other} seed buffers differ "
+                                 "in shape")
+        return (sb.count == ob.count) & \
+            (keys[name] == keys[other]).all(dim=2).all(dim=1)
+
+    res = {}
+    for name, (sb, ms) in seeds.items():
+        n = sb.count.shape[0]
+        clean = ~(sb.overflow | ref.overflow)
+        odd = clean & ~same_as(name, "lcp")
+        as_sweep = odd & same_as(name, "sweep")
+        res[name] = dict(ms=ms, reads=n, ovf=int(sb.overflow.sum()),
+                         clean=int(clean.sum()), differ=int(odd.sum()),
+                         as_sweep=int(as_sweep.sum()),
+                         bad=int((odd & ~as_sweep).sum()) if name != "sweep"
+                         else int(odd.sum()))
+    return res
+
+
+def phase_engines(dev, ctx, batch):
+    """The fallback engines on the scale phase's index and its first full
+    batch of reads: (a) collect_seeds on the sweep, the wave machine
+    and LCP K1 with FGDP_K2_SWEEP=1, each equal
+    to the LCP engine's seeds on every read neither flags overflowed
+    (the sweep strictly; a read where another engine differs must carry
+    the sweep's seeds: fgdp_tpu's K2 engines disagree there);
+    (b) Aligner(lcp=False) `mem` with its ladder, SAM equal to the LCP
+    aligner's (the scale phase's) for every read both ladders resolve;
+    (c) the first 256 reads' sweep SAM on the card equal to the CPU's;
+    (d) exact_search and inexact_search (z = 1) on 4,096 patterns of read
+    length (exact substrings of both strands and mutated ones), equal to
+    the CPU port's (inexact on the first N_INEXACT_CPU: its breadth-first
+    search on a repeat-rich genome takes minutes on the CPU) and to
+    RMIndex.lookup_host on their RMI chunks."""
+    import torch
+    from fgdp_tpu_torch import cli
+    from fgdp_tpu_torch.config import BatchShapes
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.index.rmi import RMIndex
+    from fgdp_tpu_torch.ops import exact, kernels
+    from fgdp_tpu_torch.ops.fm import DeviceFMIndex
+    from fgdp_tpu_torch.pipeline import Aligner
+    from fgdp_tpu_torch.utils import dna
+
+    lcp_al, prefix = ctx["aligner"], ctx["prefix"]
+    names, seqs, quals = next(cli.read_batches([ctx["fq"]], batch))
+    B, L = len(seqs), lcp_al.shapes.read_len
+    codes = np.full((B, L), 4, np.int32)
+    lens = np.zeros(B, np.int32)
+    for i, s in enumerate(seqs):
+        codes[i, :min(len(s), L)] = s[:L]
+        lens[i] = min(len(s), L)
+    tc = torch.as_tensor(codes, device=dev)
+    tl = torch.as_tensor(lens, device=dev)
+
+    # ---- (a) seeds by engine ----
+    res = engines_compare(lcp_al.dfm, engines_seeds(dev, lcp_al, tc, tl))
+    for name, r in res.items():
+        log(f"[engines] {name}: {r['ms']:.1f} ms for {r['reads']} reads "
+            f"(synced), {r['ovf']} reads flag overflow; of the "
+            f"{r['clean']} both it and the LCP engine leave clean, "
+            f"{r['differ']} differ from the LCP engine's seeds, "
+            f"{r['as_sweep']} of them carrying the sweep's seeds")
+    if any(r["bad"] for r in res.values()):
+        raise AssertionError("an engine's seeds differ from the LCP "
+                             "engine's on reads neither flags")
+
+    # ---- (b) the sweep aligner, ladder included ----
+    pref = PackedReference.load(prefix + ".ref")
+    fm = FMIndex.load(prefix + ".fmi")
+    shapes = BatchShapes(batch_reads=batch)
+    sweep = Aligner(pref, fm, shapes=shapes, lcp=False, device=dev)
+    kernels.reset_launches()
+    kernels.TIMED["sw_extend"] = []
+    try:
+        with ChainLaunches() as p2:
+            _sync(dev)
+            t0 = time.time()
+            lines = sweep.align_batch(names, seqs, quals)
+            _sync(dev)
+            wall = time.time() - t0
+        sw_ms = sum(s.elapsed_time(e) for s, e in kernels.TIMED["sw_extend"])
+    finally:
+        kernels.TIMED.pop("sw_extend", None)
+    launches = {k: kernels.LAUNCHES[k] for k in MEM_KERNELS}
+    ours, theirs = by_qname(lines), by_qname(ctx["lines"])
+    resolved = [n for n, s in zip(names, seqs) if not Unresolved.has(s)]
+    differ = [n for n in resolved if ours.get(n) != theirs.get(n)]
+    log(f"[engines] Aligner(lcp=False) mem: {B} reads in {wall:.2f} s = "
+        f"{B / wall:.1f} reads/s (ladder included), {sweep.esc_reads} "
+        f"escalated reads in {sweep.esc_calls} rung calls; sw_extend (P1) "
+        f"{launches['sw_extend']} launches, {sw_ms:.3f} ms; chain_loop "
+        f"(P2) {len(p2.launch_ms)} launches, {sum(p2.launch_ms):.3f} ms")
+    n_same = len(resolved) - len(differ)
+    log(f"[engines] SAM equal to the LCP aligner's for {n_same} of the "
+        f"{len(resolved)} reads both ladders resolve {differ[:4]}")
+    if differ or len(resolved) < 0.75 * B:
+        raise AssertionError("the sweep aligner's SAM differs from the LCP "
+                             "aligner's")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the sweep "
+                             f"aligner's path: {launches}")
+
+    # ---- (c) card against CPU ----
+    t0 = time.time()
+    card = sweep.align_batch(names[:256], seqs[:256], quals[:256])
+    cpu = Aligner(pref, fm, shapes=shapes, lcp=False,
+                  device="cpu").align_batch(names[:256], seqs[:256],
+                                            quals[:256])
+    log(f"[engines] first 256 reads' sweep SAM on the card equal to the "
+        f"CPU's: {card == cpu} ({len(card)} lines, "
+        f"{time.time() - t0:.1f} s)")
+    if card != cpu:
+        raise AssertionError("the sweep aligner's SAM on the card differs "
+                             "from the CPU run")
+
+    # ---- (d) exact and inexact search ----
+    rmi = RMIndex.load(prefix + ".rmi")
+    x = np.concatenate([pref.codes, dna.revcomp(pref.codes)]) \
+        .astype(np.int32)
+    rng = np.random.default_rng(2)
+    NP = 4096
+    at = rng.integers(0, len(x) - L, NP)
+    pats = np.stack([x[p:p + L] for p in at])
+    mut = np.arange(NP) % 2 == 1
+    col = rng.integers(0, L, NP)
+    pats[mut, col[mut]] = (pats[mut, col[mut]] + 1 + rng.integers(
+        0, 3, int(mut.sum()))) % 4
+    plens = np.full(NP, L, np.int32)
+    out = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        dfm = lcp_al.dfm if side == "card" else \
+            DeviceFMIndex.from_host(fm, device="cpu")
+        drmi = exact.DeviceRMI.from_host(rmi, device=d)
+        t = lambda a: torch.as_tensor(a, device=d)
+        _sync(d)
+        t0 = time.time()
+        k, s = exact.exact_search(dfm, drmi, t(pats), t(plens))
+        _sync(d)
+        t1 = time.time()
+        n_in = NP if side == "card" else N_INEXACT_CPU
+        inx = exact.inexact_search(dfm, t(pats[:n_in]), t(plens[:n_in]),
+                                   z=1, max_out=64)
+        _sync(d)
+        t2 = time.time()
+        qk, _ = exact.pack_patterns(t(pats), t(np.full(NP, L - rmi.k,
+                                                      np.int32)), rmi.k)
+        ck, cs = exact.rmi_interval(drmi, qk)
+        out[side] = dict(k=k.cpu(), s=s.cpu(), inx=[a.cpu() for a in inx],
+                         ck=ck.cpu(), cs=cs.cpu(), qk=qk.cpu(),
+                         ms=(1e3 * (t1 - t0), 1e3 * (t2 - t1)))
+    c, h = out["card"], out["cpu"]
+    same_exact = c["k"].equal(h["k"]) and c["s"].equal(h["s"])
+    same_inx = all(a[:N_INEXACT_CPU].equal(b)
+                   for a, b in zip(c["inx"], h["inx"]))
+    # lookup_host's rule (two searchsorted calls on the sorted keys) over
+    # every chunk at once, and lookup_host itself on the first 64 (one
+    # call casts the 9.2 M keys to int64)
+    qk = c["qk"].numpy()
+    lo = np.searchsorted(rmi.keys, qk, side="left")
+    cnt = np.searchsorted(rmi.keys, qk, side="right") - lo
+    hit = cnt > 0
+    same_host = np.array_equal(c["cs"].numpy(), cnt) and \
+        np.array_equal(c["ck"].numpy()[hit], lo[hit]) and all(
+            rmi.lookup_host(int(q)) == (lo[i], cnt[i])
+            for i, q in enumerate(qk[:64]))
+    kk, ss = c["k"].numpy(), c["s"].numpy()
+    found = sum(bool(np.any(fm.sa[kk[i]:kk[i] + ss[i]] == at[i]))
+                for i in np.flatnonzero(~mut))
+    cnt, ovf = c["inx"][2].numpy(), c["inx"][3].numpy()
+    log(f"[engines] exact_search of {NP} patterns of {L} bp: "
+        f"{c['ms'][0]:.1f} ms on the card ({h['ms'][0]:.1f} on the CPU), "
+        f"equal to the CPU's: {same_exact}; {found} of {int((~mut).sum())} "
+        f"exact substrings found at their position, "
+        f"{int((ss[mut] > 0).sum())} of {int(mut.sum())} mutated ones "
+        f"still occur; RMI chunks equal to RMIndex.lookup_host: "
+        f"{same_host}")
+    log(f"[engines] inexact_search z=1: {c['ms'][1]:.1f} ms for {NP} "
+        f"patterns on the card ({h['ms'][1]:.1f} ms for {N_INEXACT_CPU} on "
+        f"the CPU), those equal to the CPU's: {same_inx}; "
+        f"{int((cnt > 0).sum())} patterns with hits, {int(ovf.sum())} "
+        f"overflowed")
+    if not (same_exact and same_inx and same_host
+            and found == int((~mut).sum())):
+        raise AssertionError("exact or inexact search on the card is wrong")
+    return launches
+
+
 def phase_mutect_golden(tmp):
     """`mutect` on the card on the golden fixture; its VCF held against
     the reference binary's golden.vcf by tests/test_golden_vcf.py's
@@ -1669,9 +1944,9 @@ def pe_placement(lines, n_pairs):
 def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
     """BASELINE config 2's class (paired-end 150 bp reads, one card) on
     the scale phase's 4.6 Mb index: sim_pairs' pairs (seed 31) through
-    `mem` in-process, then `pipeline -t min(cpu-1, 8)`, whose workers
-    rescue mates on the card; then the first 256 pairs on the card and on
-    the CPU. Returns the in-process run's launches and kswv's row of the
+    `mem` in-process, then `pipeline -t min(cpu-1, 8)` on the first
+    PE_PIPELINE_PAIRS of them, whose workers rescue mates on the card;
+    then the first PE_CPU_PAIRS pairs on the card and on the CPU. Returns the in-process run's launches and kswv's row of the
     kernels line, timed on one of that run's launches."""
     import torch
     from fgdp_tpu_torch import cli
@@ -1749,7 +2024,12 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
             raise AssertionError(f"kernel {k} never launched on the "
                                  "paired-end mem path")
 
+    # `pipeline -t` PE on the first PE_PIPELINE_PAIRS pairs
     workers = min((os.cpu_count() or 2) - 1, 8)
+    n_pipe = min(PE_PIPELINE_PAIRS, n_pairs)
+    sub = os.path.join(tmp, "pe_pipeline")
+    os.makedirs(sub, exist_ok=True)
+    fqs = write_pair_fastqs(sub, pairs[:n_pipe])
     out = os.path.join(tmp, "pe_pipeline.bam")
     p0 = dict(POOL_KSWV)
     w_acc = {k: PROF.acc.get(k, 0.0) for k in ("POOL_WAIT", "SORT_FINISH")}
@@ -1765,8 +2045,8 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
         kernels.TIMED.pop("kswv", None)
     pool = {k: POOL_KSWV[k] - p0[k] for k in POOL_KSWV}
     waits = {k: round(PROF.acc.get(k, 0.0) - w_acc[k], 2) for k in w_acc}
-    log(f"[pe_scale] pipeline: {n_pairs} pairs -> {nrec} records, {ndup} "
-        f"duplicates in {wall:.2f} s = {n_pairs / wall:.1f} pairs/s, "
+    log(f"[pe_scale] pipeline: {n_pipe} pairs -> {nrec} records, {ndup} "
+        f"duplicates in {wall:.2f} s = {n_pipe / wall:.1f} pairs/s, "
         f"{n / wall:.1f} reads/s end to end ({workers} finalize workers on "
         f"the card); aligner launches "
         f"{ {k: kernels.LAUNCHES[k] for k in MEM_KERNELS} }; s "
@@ -1776,7 +2056,9 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
         "of kernel time (events each worker's launches record)")
     _, _, _, got = bamio.read_bam(out)
     keys = [(r["rid"] if r["rid"] >= 0 else 1 << 30, r["pos"]) for r in got]
-    n_sam = sum(1 for ln in lines if ln and not ln.startswith("@"))
+    piped = {p[0] for p in pairs[:n_pipe]}
+    n_sam = sum(1 for ln in lines if ln and not ln.startswith("@")
+                and ln.split("\t", 1)[0] in piped)
     log(f"[pe_scale] BAM: {len(got)} records (mem SAM {n_sam}), in "
         f"coordinate order: {keys == sorted(keys)}")
     if len(got) != nrec or nrec != n_sam or keys != sorted(keys):
@@ -1786,19 +2068,21 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
         raise AssertionError("kswv never launched in the pipeline's "
                              "workers")
 
-    # the first 256 pairs, one batch, on the card and on the CPU
-    names = [x for p in pairs[:256] for x in (p[0], p[0])]
-    seqs = [x.astype(np.int64) for p in pairs[:256] for x in p[1:]]
+    # the first PE_CPU_PAIRS pairs, one batch, on the card and on the CPU
+    names = [x for p in pairs[:PE_CPU_PAIRS] for x in (p[0], p[0])]
+    seqs = [x.astype(np.int64) for p in pairs[:PE_CPU_PAIRS]
+            for x in p[1:]]
     quals = ["I" * 151] * len(seqs)
     t0 = time.time()
     card = aligner.align_pairs(names, seqs, quals)
     cpu_al = cli.load_aligner(ctx["prefix"], batch, device="cpu")
     cpu = cpu_al.align_pairs(names, seqs, quals)
-    log(f"[pe_scale] first 256 pairs: card SAM equal to the CPU's: "
-        f"{card == cpu} ({len(card)} lines, {time.time() - t0:.1f} s)")
+    log(f"[pe_scale] first {PE_CPU_PAIRS} pairs: card SAM equal to the "
+        f"CPU's: {card == cpu} ({len(card)} lines, "
+        f"{time.time() - t0:.1f} s)")
     if card != cpu:
-        raise AssertionError("the card's SAM of the first 256 pairs "
-                             "differs from the CPU run")
+        raise AssertionError(f"the card's SAM of the first {PE_CPU_PAIRS} "
+                             "pairs differs from the CPU run")
     return launches, row
 
 
@@ -2040,7 +2324,7 @@ def sortdup_keys(rng, nd, ns, ref_len):
 
 
 def phase_sharded(dev, tmp, n_reads, n_pairs):
-    """The contig-sharded aligner on the card at full batch width:
+    """The contig-sharded aligner on the card:
     tests/test_sharded_index.py's two random contigs (120 kb + 150 kb,
     seed 7) in two shards; n_reads single-end reads and n_pairs pairs
     (sim_pairs', 5% with a baited end), SAM equal to the joint Aligner's
@@ -2052,7 +2336,9 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
     Reads/s of both, P1, P2 and D6 launches of the sharded runs. Then
     NCCL at world size 1: sharded duplicate marking and coordinate sort
     of 1,000,000 records' keys equal to the single-device engine on the
-    card."""
+    card, and the 2-D (dp, fm) mesh: shard_index + shard_align_fn_2d on
+    the SE batch, packed regs equal to the unsharded device_align's."""
+    import functools
     import socket
 
     import torch
@@ -2061,9 +2347,11 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
     from fgdp_tpu_torch.index.fmindex import FMIndex
     from fgdp_tpu_torch.ops import kernels
     from fgdp_tpu_torch.parallel import distributed as D
+    from fgdp_tpu_torch.parallel import mesh as M
     from fgdp_tpu_torch.parallel import sortdup_sharded as shd
     from fgdp_tpu_torch.parallel.sharded_index import ShardedAligner
-    from fgdp_tpu_torch.pipeline import Aligner
+    from fgdp_tpu_torch.pipeline import (Aligner, device_align_packed,
+                                         unpack_regs)
     from fgdp_tpu_torch.sortdup import engine
 
     helpers = load_file("tests/test_torch_cuda.py")
@@ -2190,6 +2478,33 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
         torch.cuda.synchronize()
         s_one = time.time() - t0
         sort_same = bool(order.equal(want)) and not sovf
+
+        # the index-sharding half of mesh.py: a (dp 1, fm 1) mesh, the
+        # joint index's FM tables sharded over fm, one batch of the SE
+        # reads through shard_align_fn_2d against device_align
+        mesh2 = M.make_mesh_2d(fm_ways=2, device=dev)
+        sh_dfm = M.shard_index(mesh2, joint.dfm)
+        fn = functools.partial(device_align_packed, opt=joint._dev_opt,
+                               shapes=joint.shapes, lcp_tree=joint.lcp_tree,
+                               lcp_isa=joint.lcp_isa)
+        codes = np.full((len(seqs), L), 4, np.int32)
+        for i, s in enumerate(seqs):
+            codes[i, :len(s)] = s[:L]
+        lens = np.array([min(len(s), L) for s in seqs], np.int32)
+        active = np.ones(len(seqs), bool)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = M.gathered_regs(M.shard_align_fn_2d(fn, mesh2)(
+            sh_dfm, joint.dref, codes, lens, active))
+        torch.cuda.synchronize()
+        m_sh = time.time() - t0
+        t0 = time.time()
+        whole = unpack_regs(fn(joint.dfm, joint.dref, *(
+            torch.as_tensor(a, device=dev) for a in (codes, lens, active)))
+            .cpu().numpy())
+        m_one = time.time() - t0
+        mesh_same = got.keys() == whole.keys() and all(
+            np.array_equal(got[k], whole[k]) for k in whole)
     finally:
         dist.destroy_process_group()
     log(f"[sharded] {backend} world size 1: the first collective (the "
@@ -2200,29 +2515,42 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
         f"flags equal: {dup_same}; coordinate sort of 1000000 records "
         f"{1e3 * s_sh:.1f} ms sharded, {1e3 * s_one:.1f} ms single-device, "
         f"order equal: {sort_same}")
+    log(f"[sharded] {backend} world size 1, 2-D mesh {tuple(mesh2.shape)} "
+        f"(dp, fm): shard_align_fn_2d on the fm-sharded index, "
+        f"{len(seqs)} reads in {m_sh:.2f} s, device_align unsharded "
+        f"{m_one:.2f} s; packed regs equal: {mesh_same} "
+        f"({int(whole['overflow'].sum())} reads overflowed, "
+        f"{int(whole['valid'].sum())} regs)")
     if not (dup_same and sort_same) or backend != "nccl":
         raise AssertionError("sharded sort + duplicate marking over NCCL "
                              "differs from the single-device engine")
+    if not mesh_same:
+        raise AssertionError("the 2-D mesh's packed regs differ from the "
+                             "unsharded device_align's")
     return sh_launches
 
 
-PHASES = ("probes", "kernels", "golden", "ladder", "scale",
+PHASES = ("probes", "kernels", "golden", "ladder", "scale", "engines",
           "mutect_golden", "mutect_scale", "sormadup_scale",
           "pipeline_scale", "pe_scale", "mutect_options", "sharded")
-# the earlier paths' depth, set so that the whole run with pe_scale,
-# mutect_options and sharded stays well inside its time limit: scale's
-# 12,288 reads are three batches (BASELINE config 1 aligns "~10K" reads)
-# and pipeline_scale plants a duplicate for a tenth of them; pe_scale's
-# 8,192 pairs are four batches. mutect_scale's 300 sites' spacing sets
-# the span of its card-vs-CPU check (WARM_SITES). The sharded phase's
-# shards escalate every read of the other contig, so its single-end set
-# is one half batch (2,048 reads, batch 4,096) beside 2,048 pairs
-SCALE_READS = 12_288
+# the earlier paths' depth, set so that the whole run with the engines
+# phase stays well inside its time limit on a slow host: scale's 8,192 reads are two
+# batches (BASELINE config 1 aligns "~10K" reads; the engines phase reads
+# the first) and pipeline_scale plants a duplicate for a tenth of them;
+# pe_scale's `mem` aligns 8,192 pairs (four batches, every kswv launch
+# held against the plain version), its `pipeline -t` the first 4,096 and
+# its card-vs-CPU check the first 128. mutect_scale's 300 sites' spacing
+# sets the span of its card-vs-CPU check (WARM_SITES). The sharded
+# phase's shards escalate every read of the other contig, so its sets
+# are 1,024 single-end reads and 1,024 pairs
+SCALE_READS = 8_192
 PE_PAIRS = 8_192
-PIPELINE_DUPS = 1_228
+PE_PIPELINE_PAIRS = 4_096
+PE_CPU_PAIRS = 128
+PIPELINE_DUPS = 819
 SORMADUP_RECORDS = 1_000_000
-SHARDED_READS = 2_048
-SHARDED_PAIRS = 2_048
+SHARDED_READS = 1_024
+SHARDED_PAIRS = 1_024
 
 
 def main(argv=None):
@@ -2270,12 +2598,15 @@ def main(argv=None):
         if "ladder" in phases:
             with phase_clock("ladder"):
                 phase_ladder(dev)
-        if phases & {"scale", "pipeline_scale", "pe_scale"}:
+        if phases & {"scale", "engines", "pipeline_scale", "pe_scale"}:
             with phase_clock("scale"):
                 mem_launches, ctx = phase_scale(
                     dev, tmp, genome_bp=4_600_000, n_reads=SCALE_READS,
                     batch=4096)
             launches.update(mem_launches)
+        if "engines" in phases:
+            with phase_clock("engines"):
+                phase_engines(dev, ctx, 4096)
         if "mutect_golden" in phases:
             with phase_clock("mutect_golden"):
                 phase_mutect_golden(tmp)

@@ -32,8 +32,7 @@ from ..index.reference import DeviceReference
 from ..ops import fm as fmops
 from ..ops import kernels
 from ..ops.fm import DeviceFMIndex
-from ..ops.smem import SeedBatch
-from .seeding import compact_order
+from ..ops.smem import SeedBatch, compact_order
 
 INT32_MAX = 2**31 - 1
 _I32 = torch.int32
@@ -127,10 +126,9 @@ def expand_seeds(dfm: DeviceFMIndex, dref: DeviceReference, smems: SeedBatch,
     qbeg_j, qend_j, k_j, step_j, base_j = ro.unbind(1)
     slen_j = qend_j + 1 - qbeg_j
     sa_row = k_j + occ_idx * step_j
-    # k < -1 encodes a direct text position (-k - 2)
-    rbeg_j = torch.where(
-        k_j < -1, -k_j - 2,
-        fmops.sa_lookup(dfm, sa_row.clamp(0, dfm.sa.shape[0] - 1)))
+    # k < -1 encodes a direct text position (-k - 2); sa_lookup clamps
+    # to the table's global row count, sharded or not
+    rbeg_j = torch.where(k_j < -1, -k_j - 2, fmops.sa_lookup(dfm, sa_row))
     read_j = (l_src[owner] // S).to(_I32)
     in_ref = rbeg_j + qend_j - qbeg_j <= 2 * dref.l_pac  # rotation guard
     rid_j = dref.intv2rid(rbeg_j, rbeg_j + slen_j)

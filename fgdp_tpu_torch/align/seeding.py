@@ -1,17 +1,23 @@
 """Seed collection driver: K1 + K2 re-seeding + K3, merged and sorted.
 
 Mirrors mem_collect_smem (reference src/bwamem.cpp:771-869):
-  K1  all-position SMEMs, min_intv=1 (LCP-tree single-pass engine)
+  K1  all-position SMEMs, min_intv=1
   K2  re-seed at the midpoint of long low-occurrence K1 SMEMs with
-      min_intv = occ+1 (ISA jump + LCP-tree ascent engine)
+      min_intv = occ+1
   K3  forward-only interval-capped seeding (max_mem_intv), minSeedLen+1
 then a per-read stable sort by (start m, end n).
 
-Port of the JAX package's align/seeding.py on its LCP path; the sweep
-and wave-machine engines are not part of the port yet.
+Port of the JAX package's align/seeding.py with its three engines:
+given an LCP tree, K1 is the single-pass LCP engine (ops/smem_lcp.py)
+and K2 the ISA-jump + tree-ascent engine (ops/smem_k2lcp.py);
+FGDP_K2_SWEEP=1 sends K2 to the sweep instead. Without a tree, K1 and
+K2 run the self-restarting sweep (ops/smem_sweep.py), or with
+use_sweep=False the wave machine (ops/smem.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -20,8 +26,9 @@ from ..ops import fm as fmops
 from ..ops import smem as smemops
 from ..ops import smem_k2lcp
 from ..ops import smem_lcp as lcpops
+from ..ops import smem_sweep as sweepops
 from ..ops.fm import DeviceFMIndex
-from ..ops.smem import SeedBatch
+from ..ops.smem import SeedBatch, compact_order
 
 INT32_MAX = 2**31 - 1
 _I32 = torch.int32
@@ -39,41 +46,45 @@ def stable_sort2(key1, key2, *payload, dim: int = 1):
     return tuple(a.gather(dim, order) for a in (key1, key2) + payload)
 
 
-def compact_order(flags, cap: int):
-    """Order-preserving compaction of a flat bool mask: the first `cap`
-    set positions in ascending order, padded with len(flags). Returns
-    (src int32[min(cap, n)], on bool[min(cap, n)])."""
-    n = flags.shape[0]
-    key = torch.where(flags, torch.arange(n, dtype=_I32,
-                                          device=flags.device), n)
-    src = torch.sort(key).values[:cap]
-    return src, src < n
-
-
 def collect_seeds(dfm: DeviceFMIndex, dref, codes, lens, active,
-                  opt: AlignConfig, max_seeds: int, lcp_tree, lcp_isa,
-                  prev_cap: int = 20, k2_per_read: int = 2,
-                  scale: int = 1, k1_emit_cap: int | None = None,
+                  opt: AlignConfig, max_seeds: int, prev_cap: int = 20,
+                  k2_per_read: int = 2, lane_emit_cap: int = 16,
+                  use_sweep: bool = True, scale: int = 1,
+                  lcp_tree=None, lcp_isa=None,
+                  k1_emit_cap: int | None = None,
                   k3_emit_cap: int | None = None,
                   k2_scale: int = 0) -> SeedBatch:
     """Returns per-read seed buffers sorted by (m, n); codes int32[B, L].
 
     Capacities: NK = B*k2_per_read K2 lanes (scaled by k2_scale or
-    scale); excess flags overflow."""
+    scale); `scale` widens every seeding-internal cap (the overflow
+    escalation ladder); excess flags overflow."""
     B, L = codes.shape
     dev = codes.device
     split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
     k2s = k2_scale or scale       # K2 pools scale independently of K1
+    prev_cap = prev_cap * k2s
     k2_per_read = k2_per_read * k2s
 
     s_k1 = min(k1_emit_cap * scale, max_seeds) if k1_emit_cap \
         else max_seeds
     s_k3 = min(k3_emit_cap * scale, max_seeds) if k3_emit_cap \
         else max_seeds
-    seeds = lcpops.smem_all_lcp(
-        dfm, lcp_tree, lcp_isa, codes, lens, active,
-        opt.min_seed_len, s_k1, ref_codes16=dref.codes16,
-        max_rounds=24 * scale)
+    ones = torch.ones(B, dtype=_I32, device=dev)
+    if lcp_tree is not None:
+        seeds = lcpops.smem_all_lcp(
+            dfm, lcp_tree, lcp_isa, codes, lens, active,
+            opt.min_seed_len, s_k1, ref_codes16=dref.codes16,
+            max_rounds=24 * scale)
+    elif use_sweep:
+        seeds = sweepops.smem_all_pos_sweep(
+            dfm, dref.codes16, codes, lens, ones, active,
+            opt.min_seed_len, s_k1, prev_cap,
+            entry_cap=min(2 * L + 16, 192 * scale), bwd_mult=44 * scale)
+    else:
+        seeds = smemops.smem_all_pos(
+            dfm, dref.codes, dref.l_pac, codes, lens, ones, active,
+            opt.min_seed_len, s_k1, prev_cap, ref_codes16=dref.codes16)
     k1_count = seeds.count
 
     # --- K2: qualifying K1 SMEMs re-seeded at their midpoint. Jobs are
@@ -95,17 +106,32 @@ def collect_seeds(dfm: DeviceFMIndex, dref, codes, lens, active,
     starts = torch.cat([torch.zeros(1, dtype=_I32, device=dev), ends[:-1]])
     k2_overflow = (ends > NK) & (ends > starts)
 
-    job_k = seeds.k.reshape(-1)[qidx]
-    job_m = seeds.m.reshape(-1)[qidx]
-    pos_occ = torch.where(job_k < -1, -job_k - 2,
-                          fmops.sa_lookup(dfm, job_k.clamp(min=0)))
-    job_pos = pos_occ + (job_x - job_m)
-    job_d0 = seeds.n.reshape(-1)[qidx] - job_x + 1
-    seeds = smem_k2lcp.k2_reseed_lcp(
-        dfm, lcp_tree, lcp_isa, codes, lens, k_read, job_x, job_mi,
-        job_pos, job_d0, k_on, opt.min_seed_len, B, s_k1, into=seeds,
-        sj_cap=16 * k2s, ascent_cap=64 * k2s, max_rounds=48 * k2s)
-
+    if lcp_tree is not None and os.environ.get("FGDP_K2_SWEEP") != "1":
+        job_k = seeds.k.reshape(-1)[qidx]
+        job_m = seeds.m.reshape(-1)[qidx]
+        pos_occ = torch.where(job_k < -1, -job_k - 2,
+                              fmops.sa_lookup(dfm, job_k.clamp(min=0)))
+        job_pos = pos_occ + (job_x - job_m)
+        job_d0 = seeds.n.reshape(-1)[qidx] - job_x + 1
+        seeds = smem_k2lcp.k2_reseed_lcp(
+            dfm, lcp_tree, lcp_isa, codes, lens, k_read, job_x, job_mi,
+            job_pos, job_d0, k_on, opt.min_seed_len, B, s_k1, into=seeds,
+            sj_cap=16 * k2s, ascent_cap=64 * k2s, max_rounds=48 * k2s)
+    elif use_sweep:
+        # walk=False: K2 min_intv = occ + 1 >= 2, the s == 1 walk branch
+        # cannot trigger
+        seeds = sweepops.smem_lanes_sweep(
+            dfm, dref.codes16, codes, lens, k_read, job_x, job_mi, k_on,
+            opt.min_seed_len, prev_cap, B, s_k1, into=seeds,
+            entry_cap=prev_cap + 2, bwd_mult=16 * k2s, walk=False)
+    else:
+        k2lanes, _ = smemops.smem_one_pos_lanes(
+            dfm, dref.codes, dref.l_pac, codes, lens, k_read, job_x,
+            job_mi, k_on, opt.min_seed_len, prev_cap, lane_emit_cap,
+            ref_codes16=dref.codes16)
+        seeds = smemops.merge_lane_seeds(k2lanes, k_read,
+                                         (qidx % S).to(_I32), k_on, B,
+                                         s_k1, into=seeds)
     # --- K3 ---
     if opt.max_mem_intv > 0:
         k3 = smemops.seed_strategy(dfm, codes, lens, active,

@@ -15,7 +15,7 @@
 
 `mem`, `sormadup`, `mutect` and `pipeline` run on the CUDA card;
 --device cpu runs them on the CPU. Index files use the JAX package's
-.npz formats (<prefix>.ref, .fmi, .lcp), so either package reads the
+.npz formats (<prefix>.ref, .fmi, .rmi, .lcp), so either package reads the
 other's index.
 """
 
@@ -32,6 +32,7 @@ def cmd_index(args):
     from .index.fmindex import FMIndex
     from .index.lcptree import LcpTree
     from .index.reference import PackedReference
+    from .index.rmi import RMIndex
     from .utils import dna
 
     t0 = time.time()
@@ -46,6 +47,10 @@ def cmd_index(args):
           file=sys.stderr)
     t0 = time.time()
     x = np.concatenate([pref.codes, dna.revcomp(pref.codes)])
+    RMIndex.build(x, fm.sa).save(args.prefix + ".rmi")
+    print(f"[index] RMI learned index built in {time.time()-t0:.1f}s",
+          file=sys.stderr)
+    t0 = time.time()
     LcpTree.build(x.astype(np.uint8), fm.sa).save(args.prefix + ".lcp")
     print(f"[index] LCP-interval tree built in {time.time()-t0:.1f}s",
           file=sys.stderr)
@@ -101,11 +106,11 @@ def load_aligner(prefix, batch, opt=None, device=None):
 
     pref = PackedReference.load(prefix + ".ref")
     fm = FMIndex.load(prefix + ".fmi")
-    lcp = None                      # build in-process if not on disk
+    lcp = True                      # build in-process if not on disk
     if os.path.exists(prefix + ".lcp.npz"):
         lcp = LcpTree.load(prefix + ".lcp.npz")
         if lcp.isa is None:         # pre-isa artifact: rebuild
-            lcp = None
+            lcp = True
     return Aligner(pref, fm, opt=opt, shapes=BatchShapes(batch_reads=batch),
                    lcp=lcp, device=device)
 

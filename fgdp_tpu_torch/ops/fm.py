@@ -16,6 +16,12 @@ Interval coordinates are int32 at every public function, as in the JAX
 package. The packed BWT words are uint32 values; torch has no uint32
 arithmetic, so the bit work runs in int64 and masks to 32 bits, and the
 popcount is a SWAR reduction (torch has no popcount op).
+
+The two big tables (occ_fused, sa) are read through one helper,
+`gather_rows`, so that they may also be row-sharded across the ranks of
+a process group (parallel/mesh.shard_index): each rank holds a
+contiguous block of rows, gathers the ones it owns, writes zeros for
+the rest, and an all_reduce(SUM) over the group completes every row.
 """
 
 from __future__ import annotations
@@ -33,6 +39,46 @@ _FULL = 0xFFFFFFFF
 _I32 = torch.int32
 
 
+class ShardedRows:
+    """This rank's contiguous block of a row-sharded table: global rows
+    [start, start + len(local)) of a table of `rows` rows (the last
+    rank's block may run past `rows` into padding, which no clamped
+    index reaches). Every rank of `group` holds one block."""
+
+    def __init__(self, local: torch.Tensor, start: int, rows: int, group):
+        self.local = local
+        self.start = start
+        self.rows = rows
+        self.group = group
+
+
+def table_rows(table) -> int:
+    """Row count of a table, global for a sharded one."""
+    return table.rows if isinstance(table, ShardedRows) else table.shape[0]
+
+
+def gather_rows(table, idx):
+    """table[idx] with idx clamped to the table's rows (the JAX package's
+    mode="clip"). For a sharded table every rank of its group must make
+    the same call: the rows this rank owns are gathered, the rest are
+    zeros, and all_reduce(SUM) over the group fills them in (a value
+    plus zeros is exact in int32)."""
+    idx = idx.long().clamp(0, table_rows(table) - 1)
+    if not isinstance(table, ShardedRows):
+        return table[idx]
+    import torch.distributed as dist
+
+    loc = idx - table.start
+    n = table.local.shape[0]
+    mine = (loc >= 0) & (loc < n)
+    out = table.local[loc.clamp(0, n - 1)]
+    out = torch.where(mine.reshape(mine.shape + (1,) * (out.dim()
+                                                        - mine.dim())),
+                      out, 0)
+    dist.all_reduce(out, group=table.group)
+    return out
+
+
 class DeviceFMIndex(NamedTuple):
     """FM-index tensors resident on the aligner's device. See
     index/fmindex.py for the layout.
@@ -44,8 +90,8 @@ class DeviceFMIndex(NamedTuple):
 
     counts: torch.Tensor       # int32[5]   C array (sentinel rank 0)
     c2: torch.Tensor           # int32[17]  dinucleotide first-row array
-    occ_fused: torch.Tensor    # int32[nblocks, 24]
-    sa: torch.Tensor           # int32[N]   full suffix array
+    occ_fused: torch.Tensor    # int32[nblocks, 24]  (or ShardedRows)
+    sa: torch.Tensor           # int32[N] full suffix array (or ShardedRows)
     sentinel_row: int          # r0: B packs $ as code 0
     r1_row: int                # B1 packs $ as code 0
     cc_r0: int                 # spurious pair code at r0
@@ -108,8 +154,7 @@ def _row(fm: DeviceFMIndex, i):
     the JAX package's mode="clip"), its packed words as uint32 values in
     int64, and the in-block prefix masks."""
     i = i.long()
-    blk = (i >> 5).clamp(0, fm.occ_fused.shape[0] - 1)
-    row = fm.occ_fused[blk]                                  # (..., 24)
+    row = gather_rows(fm.occ_fused, i >> 5)                  # (..., 24)
     words = row[..., 20:24].long() & _FULL
     return row, words, _prefix_masks(i & 31)
 
@@ -301,4 +346,4 @@ def init_interval(fm: DeviceFMIndex, c):
 def sa_lookup(fm: DeviceFMIndex, idx):
     """SA[idx] gather, clamped to the table (the JAX package's
     mode="clip")."""
-    return fm.sa[idx.long().clamp(0, fm.sa.shape[0] - 1)]
+    return gather_rows(fm.sa, idx)

@@ -27,7 +27,7 @@ import torch
 
 from . import fm as fmops
 from .smem import LaneSeeds, _append_seed, any_by, merge_lane_seeds
-from .smem_sweep import _read_base_at
+from .smem import _read_base_at
 
 MODE_EXT = 0
 MODE_SHR = 1

@@ -27,8 +27,9 @@ from __future__ import annotations
 import torch
 
 from . import fm as fmops
-from .smem import SeedBatch, _append_seed, _empty_seeds, any_by
-from .smem_sweep import WALK_T, _read_base_at, pack_reads, read_window
+from .smem import (SeedBatch, _append_seed, _empty_seeds, _read_base_at,
+                   any_by)
+from .smem_sweep import WALK_T, pack_reads, read_window
 from ..index.reference import packed_window
 
 MODE_EXT = 0     # backward-extending (s > 1)

@@ -1,16 +1,23 @@
-"""Data-parallel alignment over the ranks of a device mesh.
+"""Alignment over the ranks of a device mesh.
 
-Port of the data-parallel half of the JAX package's parallel/mesh.py.
-The reference scales with pthreads on one host (kt_for work stealing,
-src/kthread.cpp:41-115). Here each rank is one process with one device:
-read batches split along axis "dp" while the FM index and reference are
-replicated (every rank loads them), each rank runs the device program on
-its rows, and the packed regs are gathered (all_gather_into_tensor).
+Port of the JAX package's parallel/mesh.py. The reference scales with
+pthreads on one host (kt_for work stealing, src/kthread.cpp:41-115).
+Here each rank is one process with one device.
 
-The index-sharding half (`make_mesh_2d`, `shard_index`,
-`shard_align_fn_2d`) is not ported: in JAX, XLA partitions every FM
-gather across the "fm" axis; in torch that is an exchange inside every
-seeding step.
+Data-parallel half: read batches split along axis "dp" while the FM
+index and reference are replicated (every rank loads them), each rank
+runs the device program on its rows, and the packed regs are gathered
+(all_gather_into_tensor).
+
+Index-sharding half (the TP analogue): a 2-D mesh (dp, fm) range-shards
+the occ checkpoint rows and the SA along "fm" (shard_index), so an index
+larger than one card spreads over the axis. Where XLA partitions each
+gather into a local gather plus a combine across "fm", every gather of
+the two tables here goes through ops/fm.gather_rows: the rows a rank
+owns, zeros elsewhere, all_reduce(SUM) over the fm group. The batch is
+split on dp and replicated on fm, so every rank of an fm group runs the
+same steps on the same reads and takes the same host decisions, which
+keeps the collectives in lockstep.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops.fm import ShardedRows
 from ..utils.device import resolve_device
 from .distributed import _tree_map
 
@@ -80,6 +88,59 @@ def shard_align_fn(fn, mesh, axis: str = "dp"):
         return out.view((world,) + tuple(local.shape))
 
     return run
+
+
+def make_mesh_2d(n_devices: int | None = None, fm_ways: int = 2,
+                 axes=("dp", "fm"), device=None):
+    """2-D DeviceMesh over the ranks of the default process group: a
+    data-parallel axis and an index-sharding axis of fm_ways ranks (cut
+    down to a divisor of the world size). Ranks r // fm_ways share a dp
+    row, consecutive ranks an fm group, as the JAX package's reshape
+    lays the devices out."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = dist.get_world_size()
+    if n_devices is not None and n_devices != n:
+        raise ValueError(f"{n_devices} devices asked for, {n} ranks run")
+    fm_ways = min(fm_ways, n)
+    while n % fm_ways:
+        fm_ways -= 1
+    return init_device_mesh(resolve_device(device).type,
+                            (n // fm_ways, fm_ways), mesh_dim_names=axes)
+
+
+def _pad_rows(a, ways: int):
+    """a with zero rows appended up to a multiple of `ways`."""
+    pad = (-a.shape[0]) % ways
+    if pad == 0:
+        return a
+    return torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+
+
+def shard_index(mesh, dfm, axis: str = "fm"):
+    """Range-shard the big FM-index tables (occ checkpoint rows, SA)
+    along `axis`: this rank keeps its contiguous block of the tables
+    padded to a multiple of the axis' size; the small arrays and the
+    scalars stay replicated. Gathers clamp to the global row count, so
+    padded rows are never read."""
+    group = mesh.get_group(axis)
+    ways = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+
+    def shard(a):
+        per = -(-a.shape[0] // ways)
+        block = _pad_rows(a, ways)[rank * per:(rank + 1) * per].clone()
+        return ShardedRows(block, rank * per, a.shape[0], group)
+
+    return dfm._replace(occ_fused=shard(dfm.occ_fused), sa=shard(dfm.sa))
+
+
+def shard_align_fn_2d(fn, mesh, dp_axis: str = "dp"):
+    """The align step over a (dp, fm) mesh: `fn(dfm, dref, codes, lens,
+    active)` runs on this rank's dp rows with the index as the caller
+    passes it (shard_index's for the fm-sharded tables); the packed regs
+    are gathered along dp, as shard_align_fn gathers them."""
+    return shard_align_fn(fn, mesh, dp_axis)
 
 
 def gathered_regs(bufs) -> dict:

@@ -29,12 +29,13 @@ from .align import chain as chainmod
 from .align import extend as extendmod
 from .align import finalize
 from .align import pair as pairmod
-from .align.seeding import collect_seeds, compact_order
+from .align.seeding import collect_seeds
 from .config import AlignConfig, BatchShapes
 from .index.fmindex import FMIndex
 from .index.lcptree import LcpTree
 from .index.reference import DeviceReference, PackedReference
 from .ops.fm import DeviceFMIndex
+from .ops.smem import compact_order
 from .utils import dna
 from .utils.device import resolve_device
 
@@ -63,8 +64,9 @@ class _StageClock:
 
 def device_align(dfm: DeviceFMIndex, dref: DeviceReference, codes, lens,
                  active, opt: AlignConfig, shapes: BatchShapes,
-                 lcp_tree, lcp_isa, stage_ms=None):
-    """codes int[B, L] -> AlnRegBatch (compacted to transfer_regs)."""
+                 lcp_tree=None, lcp_isa=None, stage_ms=None):
+    """codes int[B, L] -> AlnRegBatch (compacted to transfer_regs).
+    Seeding runs the LCP engine given a tree, else the sweep."""
     clock = _StageClock(stage_ms, codes.device)
     codes = codes.to(_I32)
     seeds = collect_seeds(dfm, dref, codes, lens, active, opt,
@@ -214,7 +216,7 @@ def unpack_regs(buf: np.ndarray) -> dict:
 
 
 def device_align_packed(dfm, dref, codes, lens, active, opt, shapes,
-                        lcp_tree, lcp_isa, stage_ms=None):
+                        lcp_tree=None, lcp_isa=None, stage_ms=None):
     """device_align + single-buffer wire packing (see pack_regs).
 
     Escalated programs (pack_cap=0) ship at full per-read width."""
@@ -241,22 +243,26 @@ class Aligner:
     def __init__(self, pref: PackedReference, fm: FMIndex,
                  opt: AlignConfig | None = None,
                  shapes: BatchShapes | None = None,
-                 lcp: LcpTree | None = None, device=None):
+                 lcp: LcpTree | bool | None = True, device=None):
         self.device = resolve_device(device)
         self.pref = pref
         self.opt = opt or AlignConfig()
         self.shapes = shapes or BatchShapes()
         self.dref = DeviceReference(pref, self.device)
         self.dfm = DeviceFMIndex.from_host(fm, self.device)
-        # K1/K2 seeding engine: the LCP-tree machines (lcp=None builds
-        # the tree from the index's SA; pass a loaded LcpTree to skip
-        # the build)
-        if lcp is None:
+        # K1/K2 seeding engine, as in the JAX package: the LCP-tree
+        # machines by default (lcp=True builds the tree from the index's
+        # SA; pass a loaded LcpTree to skip the build), the sweep for
+        # lcp=None/False
+        if lcp is True:
             x = np.concatenate([pref.codes,
                                 dna.revcomp(pref.codes)]).astype(np.uint8)
             lcp = LcpTree.build(x, fm.sa)
-        self.lcp_tree = torch.as_tensor(lcp.tree, device=self.device)
-        self.lcp_isa = torch.as_tensor(lcp.isa, device=self.device)
+        if lcp:
+            self.lcp_tree = torch.as_tensor(lcp.tree, device=self.device)
+            self.lcp_isa = torch.as_tensor(lcp.isa, device=self.device)
+        else:
+            self.lcp_tree = self.lcp_isa = None
         # host-only output options don't shape the device program
         self._dev_opt = dataclasses.replace(self.opt, output_all=False)
         self.stage_ms = None

@@ -1046,3 +1046,133 @@ def test_sormadup_on_card_equals_cpu(dev, tmp_path):
         out[d] = (bam.read_bytes(),
                   (tmp_path / f"{d}.bam.bai").read_bytes())
     assert out["cuda"] == out["cpu"]
+
+
+def seeding_world(seed=7, n_ref=600, n_reads=24, L=48):
+    """tests/test_smem_sweep.py's world and a read mix like
+    test_smem.make_reads' (planted, mutated, junk, with N), made here
+    without JAX."""
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.utils import dna
+
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, size=n_ref, dtype=np.uint8)
+    pref = PackedReference.from_contigs(["chr1"], [ref])
+    text = np.concatenate([ref, dna.revcomp(ref)])
+    reads = np.zeros((n_reads, L), np.int32)
+    for i in range(n_reads):
+        p = rng.integers(0, len(text) - L)
+        reads[i] = text[p:p + L]
+        if i % 4 == 1:
+            reads[i, rng.integers(0, L, 3)] = rng.integers(0, 4, 3)
+        elif i % 4 == 2:
+            reads[i] = rng.integers(0, 4, L)
+        elif i % 4 == 3:
+            reads[i, rng.integers(0, L, 2)] = 4
+    return rng, ref, pref, FMIndex.build(pref.codes), reads
+
+
+@pytest.mark.cuda
+def test_seeding_engines_on_card_equal_cpu(dev):
+    """The wave machine, the sweep (K1 and K2 shapes, at default and at
+    tight caps) and collect_seeds on each engine: every output on the
+    card equals the CPU's exactly."""
+    from fgdp_tpu_torch.align import seeding
+    from fgdp_tpu_torch.index.lcptree import LcpTree
+    from fgdp_tpu_torch.index.reference import DeviceReference
+    from fgdp_tpu_torch.ops import smem, smem_sweep
+    from fgdp_tpu_torch.ops.fm import DeviceFMIndex
+    from fgdp_tpu_torch.utils import dna
+
+    rng, ref, pref, fm, reads = seeding_world()
+    B, L = reads.shape
+    NJ = 2 * B
+    host = dict(codes=reads, lens=rng.integers(L // 2, L + 1, B)
+                .astype(np.int32), mi=np.ones(B, np.int32),
+                act=rng.random(B) < 0.85,
+                ridx=np.repeat(np.arange(B), 2).astype(np.int32),
+                x=rng.integers(0, L, NJ).astype(np.int32),
+                jmi=rng.integers(2, 6, NJ).astype(np.int32),
+                jon=rng.random(NJ) < 0.85)
+    x = np.concatenate([ref, dna.revcomp(ref)]).astype(np.uint8)
+    lcp = LcpTree.build(x, fm.sa)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
+        dfm = DeviceFMIndex.from_host(fm, device=d)
+        dref = DeviceReference(pref, device=d)
+        r = {}
+        r["wave"] = smem.smem_all_pos(
+            dfm, dref.codes, dref.l_pac, t["codes"], t["lens"], t["mi"],
+            t["act"], 8, max_seeds=64, prev_cap=50,
+            ref_codes16=dref.codes16)
+        lanes, nx = smem.smem_one_pos_lanes(
+            dfm, dref.codes, dref.l_pac, t["codes"], t["lens"], t["ridx"],
+            t["x"], t["jmi"], t["jon"], 8, 50, 8,
+            ref_codes16=dref.codes16)
+        r["wave_lanes"], r["wave_nx"] = lanes, nx
+        for tag, ec, bm, pc in (("auto", 0, 0, 50), ("tight", 6, 2, 4)):
+            r[f"sweep_{tag}"] = smem_sweep.smem_all_pos_sweep(
+                dfm, dref.codes16, t["codes"], t["lens"], t["mi"],
+                t["act"], 8, max_seeds=64, prev_cap=pc, entry_cap=ec,
+                bwd_mult=bm)
+            r[f"lanes_{tag}"] = smem_sweep.smem_lanes_sweep(
+                dfm, dref.codes16, t["codes"], t["lens"], t["ridx"],
+                t["x"], t["jmi"], t["jon"], 8, prev_cap=pc, B=B,
+                max_seeds=64, entry_cap=ec, bwd_mult=bm, walk=False)
+        tree = dict(lcp_tree=torch.as_tensor(lcp.tree, device=d),
+                    lcp_isa=torch.as_tensor(lcp.isa, device=d))
+        opt = AlignConfig(min_seed_len=10, max_mem_intv=20, split_width=10)
+        for name, kw in (("sweep", {}), ("wave", dict(use_sweep=False)),
+                         ("lcp", tree)):
+            r[f"collect_{name}"] = seeding.collect_seeds(
+                dfm, dref, t["codes"], t["lens"], t["act"], opt,
+                max_seeds=64, **kw)
+        out[d.type] = r
+    for k, got in out["cuda"].items():
+        want = out["cpu"][k]
+        if isinstance(got, torch.Tensor):
+            assert torch.equal(got.cpu(), want), k
+            continue
+        for f in got._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), \
+                (k, f)
+    assert bool(out["cpu"]["sweep_tight"].overflow.any())
+
+
+@pytest.mark.cuda
+def test_exact_search_on_card_equals_cpu(dev):
+    """RMI interval, exact search and inexact search (z = 1, and an
+    output buffer small enough to overflow) on the card equal the CPU's
+    exactly."""
+    from fgdp_tpu_torch.index.rmi import RMIndex
+    from fgdp_tpu_torch.ops import exact
+    from fgdp_tpu_torch.ops.fm import DeviceFMIndex
+    from fgdp_tpu_torch.utils import dna
+
+    rng, ref, pref, fm, reads = seeding_world(seed=17, n_ref=1500,
+                                              n_reads=32, L=41)
+    x = np.concatenate([ref, dna.revcomp(ref)]).astype(np.uint8)
+    rmi = RMIndex.build(x, fm.sa, leaf_bits=8)
+    lens = np.full(len(reads), 41, np.int32)
+    lens[2::4] = rng.integers(0, 15, len(lens[2::4]))
+    qkeys = np.concatenate([rmi.keys[rng.integers(0, len(rmi.keys), 30)],
+                            [rmi.keys[-1], 0]]).astype(np.int32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        dfm = DeviceFMIndex.from_host(fm, device=d)
+        drmi = exact.DeviceRMI.from_host(rmi, device=d)
+        t = lambda a: torch.as_tensor(a, device=d)
+        short = t(reads[:, :17].copy())
+        out[d.type] = (
+            exact.rmi_interval(drmi, t(qkeys))
+            + exact.exact_search(dfm, drmi, t(reads), t(lens))
+            + exact.inexact_search(dfm, short, t(np.full(32, 17, np.int32)),
+                                   z=1, max_out=64)
+            + exact.inexact_search(dfm, t(reads[:, :9].copy()),
+                                   t(np.full(32, 9, np.int32)), z=2,
+                                   max_out=4))
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        assert torch.equal(a.cpu(), b), i
+    assert bool(out["cpu"][-1].any())

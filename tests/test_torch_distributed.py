@@ -14,7 +14,14 @@ read what it wrote:
     on its 8-device CPU mesh, on tests/test_sortdup_sharded.py's inputs;
   * a small capacity raises the overflow flag on every rank;
   * world size 2: data-parallel shard_align_fn gives the regs of one
-    process over the whole batch.
+    process over the whole batch;
+  * world sizes 2 (dp 1 x fm 2) and 4 (dp 2 x fm 2): on the index
+    range-sharded over "fm" (mesh.shard_index), occ4 and sa_lookup equal
+    the unsharded ones on random rows, the padded tail and both clip
+    edges, and shard_align_fn_2d's packed regs equal one process's
+    device_align on the unsharded index over each dp row block of
+    tests/golden/rep.fq, at caps where most reads overflow, at a rung
+    of the escalation ladder, and on the sweep.
 """
 
 import os
@@ -29,6 +36,84 @@ ROOT = pathlib.Path(__file__).parents[1]
 WORLDS = (1, 2, 4)
 ND, NS, N_SORT = 256, 128, 512
 ALIGN_READS = 64
+# (caps, engine) of the 2-D mesh's align runs: the ladder test's tight
+# caps (every read overflows), the k2w rung of level 1, and the sweep
+MESH2D_RUNS = (("tight", "lcp"), ("k2w1", "lcp"), ("tight", "sweep"))
+
+
+def _mesh2d_jobs(world):
+    """The index-sharding half of parallel/mesh.py on this rank."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from fgdp_tpu_torch.config import BatchShapes
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.io.fastq import parse_fastq_records
+    from fgdp_tpu_torch.ops import fm as fmops
+    from fgdp_tpu_torch.parallel import mesh as M
+    from fgdp_tpu_torch.pipeline import (Aligner, device_align_packed,
+                                         unpack_regs)
+    from fgdp_tpu_torch.utils import dna
+
+    res = {}
+    golden = ROOT / "tests" / "golden"
+    pref = PackedReference.from_fasta(str(golden / "rep_ref.fa"))
+    tight = BatchShapes(read_len=100, batch_reads=ALIGN_READS, max_smems=1,
+                        max_seeds=8, max_chains=2, max_regs=3,
+                        transfer_regs=2, pack_cap=1, max_ext_ref=304)
+    al = Aligner(pref, FMIndex.build(pref.codes), shapes=tight,
+                 device="cpu")
+    mesh = M.make_mesh_2d(fm_ways=2, device="cpu")
+    assert tuple(mesh.shape) == (world // 2, 2)
+    sharded = M.shard_index(mesh, al.dfm)
+    dfm = al.dfm
+
+    # rank primitives on random rows, the padded tail and the clip edges
+    n_sa = dfm.sa.shape[0]
+    n_occ = 32 * dfm.occ_fused.shape[0]
+    rng = np.random.default_rng(5)
+    edges = [-40, -1, 0, 1, n_sa - 1, n_sa, n_sa + 1, n_occ - 1, n_occ,
+             n_occ + 31, n_occ + 64, 2**31 - 1]
+    rows = torch.as_tensor(np.concatenate(
+        [edges, rng.integers(0, n_sa, 200)]).astype(np.int32))
+    for name, fn in (("occ4", fmops.occ4), ("sa", fmops.sa_lookup)):
+        res[f"mesh2d_{name}_whole"] = fn(dfm, rows).numpy()
+        res[f"mesh2d_{name}_sharded"] = fn(sharded, rows).numpy()
+
+    seqs = [dna.encode(r[2]) for r in parse_fastq_records(
+        str(golden / "rep.fq"))][:ALIGN_READS]
+    L = tight.read_len
+    codes = np.full((len(seqs), L), 4, np.int32)
+    lens = np.zeros(len(seqs), np.int32)
+    for i, q in enumerate(seqs):
+        codes[i, :min(len(q), L)] = q[:L]
+        lens[i] = min(len(q), L)
+    active = np.ones(len(seqs), bool)
+    caps = {"tight": tight,
+            "k2w1": dataclasses.replace(al._k2_wide_shapes(1),
+                                        batch_reads=ALIGN_READS)}
+    for cap, engine in MESH2D_RUNS:
+        tree = dict(lcp_tree=al.lcp_tree, lcp_isa=al.lcp_isa) \
+            if engine == "lcp" else {}
+        fn = functools.partial(device_align_packed, opt=al._dev_opt,
+                               shapes=caps[cap], **tree)
+        run = M.shard_align_fn_2d(fn, mesh)
+        got = M.gathered_regs(run(sharded, al.dref, codes, lens, active))
+        # one process over each dp row block (the ranks of a dp row
+        # run their rows as their own batch, as shard_align_fn does)
+        n = len(seqs) // (world // 2)
+        parts = [unpack_regs(fn(dfm, al.dref, *(
+            torch.as_tensor(a[d:d + n]) for a in (codes, lens, active)))
+            .numpy()) for d in range(0, len(seqs), n)]
+        whole = {k: np.concatenate([q[k] for q in parts])
+                 for k in parts[0]}
+        for k in whole:
+            res[f"mesh2d_{cap}_{engine}_whole_{k}"] = whole[k]
+            res[f"mesh2d_{cap}_{engine}_got_{k}"] = got[k]
+    return res
 
 
 # ---------------------------------------------------------------- worker
@@ -126,6 +211,8 @@ def _worker(rank, world, store, inp, out):
         for k in whole:
             res[f"align_whole_{k}"] = whole[k]
             res[f"align_dp_{k}"] = got[k]
+    if world in (2, 4):
+        res.update(_mesh2d_jobs(world))
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
     dist.destroy_process_group()
     print(f"WORKER_OK {rank}", flush=True)
@@ -315,3 +402,35 @@ def test_shard_align_fn_equals_one_process(runs):
     for k in keys:
         np.testing.assert_array_equal(r[f"align_dp_{k}"],
                                       r[f"align_whole_{k}"], err_msg=k)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_sharded_fm_gather_equals_unsharded(runs, world):
+    """occ4 and sa_lookup through the fm-sharded tables equal the whole
+    tables' on every rank, the padded tail and both clip edges
+    included."""
+    for r in runs[world]:
+        for name in ("occ4", "sa"):
+            np.testing.assert_array_equal(r[f"mesh2d_{name}_sharded"],
+                                          r[f"mesh2d_{name}_whole"],
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("world", (2, 4))
+@pytest.mark.parametrize("cap,engine", MESH2D_RUNS)
+def test_shard_align_fn_2d_equals_one_process(runs, world, cap, engine):
+    """shard_align_fn_2d on the fm-sharded index: every rank's gathered
+    regs equal one process's device_align on the unsharded index over
+    each dp row block (the whole batch at dp 1), on a batch whose reads
+    overflow and go up the ladder."""
+    tag = f"mesh2d_{cap}_{engine}"
+    for r in runs[world]:
+        keys = [k[len(tag) + 7:] for k in r if k.startswith(tag + "_whole_")]
+        assert "rb" in keys and "overflow" in keys
+        for k in keys:
+            np.testing.assert_array_equal(r[f"{tag}_got_{k}"],
+                                          r[f"{tag}_whole_{k}"], err_msg=k)
+    whole = runs[world][0]
+    assert whole[f"{tag}_whole_valid"].shape[0] == ALIGN_READS
+    if cap == "tight":
+        assert whole[f"{tag}_whole_overflow"].sum() >= ALIGN_READS // 2
