@@ -33,9 +33,18 @@ fails loudly:
   6. scale    BASELINE config 1 at E. coli size: a 4.6 Mb repeat-rich
               reference (scripts/gen_genome.py's generator) and 8,192
               single-end 151 bp reads; launch counts, reads/s, per-stage
-              ms, the SW and chain-loop kernels' summed time (CUDA
-              events around every launch; the chain loop's by launch
-              shape), peak device memory, and placement accuracy
+              ms, the SW, chain-loop and seeding kernels' summed time
+              (CUDA events around every launch; the chain loop's by
+              launch shape), peak device memory, and placement accuracy;
+              every launch of the seeding kernels (K1 smem_lcp, K2
+              k2_lcp, K3 seed_strategy) in the primary batches and in
+              every rung held exactly against its plain version on its
+              inputs; the seeding split of the first primary batch (K1,
+              K2's jobs, K2, K3 and the final merge, each ended by a
+              sync), the kernels against the torch-op loops in turns;
+              each seeding kernel's ms on that batch, its bytes bound
+              (the table bytes its lanes gather, counted by the kernel)
+              and its serial bound
   7. mutect_golden  `mutect` on tests/golden/mutect on the card, held
               against the reference binary's golden.vcf by
               tests/test_golden_vcf.py's rules
@@ -63,14 +72,16 @@ fails loudly:
               record count, coordinate order, the planted duplicates
               found, and the records equal to the `mem` SAM of the same
               reads, flags aside; reads/s end to end; the chain loop's
-              launches and summed kernel time
+              and the seeding kernels' launches and summed kernel time
  12. pe_scale BASELINE config 2's class on the scale phase's index:
               8,192 simulated pairs of 2 x 151 bp (insert N(400, 40), both
               strands, sim_reads' errors, 5% of the pairs with one end
               baited: every 12th base changed, so only mate rescue places
               it) through `mem` in-process and the first 4,096 through
-              `pipeline -t min(cpu-1, 8)` (the workers rescue on the card): pairs/s and reads/s, kswv
-              launches, jobs, cells and kernel ms (the workers' included),
+              `pipeline -t min(cpu-1, 8)` (the workers rescue on the
+              card): pairs/s and reads/s, the seeding kernels' launches
+              and kernel ms, kswv launches, jobs, cells and kernel ms
+              (the workers' included),
               the (J, QP, TP) of the `mem` run's kswv launches, each held
               exactly against the plain version on its inputs, and kswv's
               timed case, bound and row-loop SASS on one of them,
@@ -132,8 +143,12 @@ MUTECT_SITES = 300
 # the CPU: the CPU side is the slowest span of the earlier paths (about
 # 3-4 s a site)
 WARM_SITES = 5
-MEM_KERNELS = ("chain_loop", "sw_extend")   # the kernels of `mem`'s path
-PE_KERNELS = MEM_KERNELS + ("kswv",)        # and of paired-end `mem`
+# the seeding kernels of the LCP engine (K1, K2, K3), the kernels of
+# `mem`'s path, of paired-end `mem`, and of `mem` on the sweep engine
+SEED_KERNELS = ("smem_lcp", "k2_lcp", "seed_strategy")
+MEM_KERNELS = ("chain_loop", "sw_extend") + SEED_KERNELS
+PE_KERNELS = MEM_KERNELS + ("kswv",)
+SWEEP_KERNELS = ("chain_loop", "sw_extend", "seed_strategy")
 
 
 def log(msg):
@@ -937,18 +952,24 @@ def _load_fastq(path):
 
 
 class EscCounter:
-    """Counts kernel launches made inside escalated rungs."""
+    """Counts kernel launches made inside escalated rungs; `rung` is the
+    (flavor, level) of the rung running, None outside one."""
 
     def __init__(self, aligner):
         from fgdp_tpu_torch.ops import kernels
         self.kernels = kernels
         self.launches = {k: 0 for k in MEM_KERNELS}
         self.rungs = []
+        self.rung = None
         inner = aligner._esc_exec
 
         def spy(flavor, level, *a):
             before = dict(kernels.LAUNCHES)
-            out = inner(flavor, level, *a)
+            self.rung = (flavor, level)
+            try:
+                out = inner(flavor, level, *a)
+            finally:
+                self.rung = None
             for k in self.launches:
                 self.launches[k] += kernels.LAUNCHES[k] - before[k]
             self.rungs.append((flavor, level))
@@ -1008,6 +1029,235 @@ class ChainLaunches:
                 f"{h['steps']} = {1e3 * h['ms'] / max(h['steps'], 1):.3f} "
                 f"us per step")
         return total
+
+
+# the seeding kernels' wrappers, by kernel: (module, kernel function,
+# plain function) under fgdp_tpu_torch.ops, and the JAX loop each replaces
+SEED_FNS = {
+    "smem_lcp": ("smem_lcp", "smem_all_lcp_kernel", "smem_all_lcp_plain"),
+    "k2_lcp": ("smem_k2lcp", "k2_reseed_lcp_kernel", "k2_reseed_lcp_plain"),
+    "seed_strategy": ("smem", "seed_strategy_kernel", "seed_strategy_plain"),
+}
+
+
+def _seed_fn(name, which):
+    """The kernel (which=1) or plain (which=2) function of a seeding
+    kernel, looked up at call time."""
+    import importlib
+    mod = importlib.import_module("fgdp_tpu_torch.ops." + SEED_FNS[name][0])
+    return getattr(mod, SEED_FNS[name][which])
+
+
+class SeedLaunches:
+    """The seeding kernels' launches on a main-path run: the kernel ms of
+    each from the events its C entry point records, and, with keep=True,
+    every launch's card inputs and outputs and the rung it ran in (the
+    EscCounter's, None for a primary batch), to be held against the plain
+    versions after the run; the first primary K1 launch's inputs always
+    (the seeding split's batch)."""
+
+    def __init__(self, esc=None, keep=False):
+        self.esc, self.keep = esc, keep
+
+    def __enter__(self):
+        import importlib
+        from fgdp_tpu_torch.ops import kernels
+        self.kernels = kernels
+        self.seen, self.primary, self.inner = [], None, {}
+        for name, (mod, kfn, _) in SEED_FNS.items():
+            m = importlib.import_module("fgdp_tpu_torch.ops." + mod)
+            inner = self.inner[name] = (m, getattr(m, kfn))
+
+            def spy(*a, _name=name, _inner=inner[1], **kw):
+                out = _inner(*a, **kw)
+                rung = self.esc.rung if self.esc is not None else None
+                if self.keep:
+                    self.seen.append((_name, rung, a, kw, out))
+                if _name == "smem_lcp" and rung is None and \
+                        self.primary is None:
+                    self.primary = a
+                return out
+
+            setattr(m, kfn, spy)
+            kernels.TIMED[name] = []
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, (m, inner) in self.inner.items():
+            setattr(m, SEED_FNS[name][1], inner)
+        torch.cuda.synchronize()
+        self.launch_ms = {name: [s.elapsed_time(e) for s, e in
+                                 self.kernels.TIMED.pop(name, [])]
+                          for name in SEED_FNS}
+
+    def report(self, tag, wall):
+        """Log each kernel's launches and summed kernel ms (and share of
+        `wall` seconds); returns {kernel: (launches, ms)}."""
+        out = {}
+        for name, ms in self.launch_ms.items():
+            out[name] = (len(ms), sum(ms))
+            log(f"[{tag}] {name} on the path: {len(ms)} launches, "
+                f"{sum(ms):.3f} ms of kernel time (CUDA events its C entry "
+                f"point records around each launch) = "
+                f"{100 * sum(ms) / (1e3 * wall):.4f}% of the wall")
+        return out
+
+    def hold(self, tag):
+        """Every kept launch's outputs exactly equal to its plain version
+        on its inputs; logs the launches held by kernel and rung."""
+        from collections import Counter
+        held = Counter()
+        for name, rung, a, kw, got in self.seen:
+            want = _seed_fn(name, 2)(*a, **kw)
+            for f in got._fields:
+                if not bool((getattr(got, f) == getattr(want, f)).all()):
+                    raise AssertionError(
+                        f"{name} launch of rung {rung} differs from its "
+                        f"plain version in {f}")
+            held[name, "primary" if rung is None else
+                 f"{rung[0]} level {rung[1]}"] += 1
+        log(f"[{tag}] every seeding kernel launch equals its plain version "
+            f"on its inputs: " + ", ".join(
+                f"{k} {r}: {n}" for (k, r), n in sorted(held.items())))
+        return held
+
+
+def seeding_split(al, codes, lens, active, kernel):
+    """The LCP engine's collect_seeds at the aligner's primary caps on one
+    batch, piece by piece, each ended by a sync, on the kernels
+    (kernel=True) or the torch-op loops: ({piece: ms}, SeedBatch)."""
+    import torch
+    from fgdp_tpu_torch.align import seeding
+
+    sh, opt = al.shapes, al._dev_opt
+    if sh.seed_scale != 1 or sh.k2_scale or sh.k1_emit_cap or \
+            sh.k3_emit_cap:
+        raise ValueError("the split takes the primary caps")
+    B, S = codes.shape[0], sh.max_smems
+    which = 1 if kernel else 2
+    ms = {}
+
+    def lap(piece, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[piece] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+    k1 = lap("K1", lambda: _seed_fn("smem_lcp", which)(
+        al.dfm, al.lcp_tree, al.lcp_isa, codes, lens, active,
+        opt.min_seed_len, S, al.dref.codes16, 24))
+
+    def jobs():
+        qidx, k_read, x, mi, on, ovf = seeding.k2_jobs(k1, opt, split_len,
+                                                       2 * B)
+        pos, d0 = seeding.lcp_job_pos(al.dfm, k1, qidx, x)
+        return (k_read, x, mi, pos, d0, on), ovf
+
+    job, k2_ovf = lap("K2 jobs", jobs)
+    k2 = lap("K2", lambda: _seed_fn("k2_lcp", which)(
+        al.dfm, al.lcp_tree, al.lcp_isa, codes, lens, *job,
+        opt.min_seed_len, B, S, into=k1, sj_cap=16, ascent_cap=64,
+        max_rounds=48))
+    k3 = lap("K3", lambda: _seed_fn("seed_strategy", which)(
+        al.dfm, codes, lens, active, opt.max_mem_intv,
+        opt.min_seed_len + 1, S))
+    out = lap("merge", lambda: seeding.merge_sorted(k2, k3, k2_ovf))
+    ms["total"] = sum(ms.values())
+    return ms, dict(k1=k1, job=job, k2=k2, k3=k3, out=out)
+
+
+def seed_work(name, *a, **kw):
+    """A seeding kernel's launch with its work counters: (output, [table
+    bytes gathered, grid steps, lane steps, longest lane's own steps])."""
+    import torch
+    work = torch.zeros(4, dtype=torch.int64, device=a[0].counts.device)
+    out = _seed_fn(name, 1)(*a, **kw, work=work)
+    return out, [int(v) for v in work.cpu()]
+
+
+def seed_rows(al, codes, lens, active):
+    """The seeding split, kernels against torch ops on the same batch (in
+    turns: plain, kernels, kernels, plain; the second of each kept), the
+    split's outputs equal, and the kernels line's rows of smem_lcp, k2_lcp
+    and seed_strategy on that batch: kernel ms (mean of 10 launches, CUDA
+    events), plain ms (the split's), the bytes bound (table bytes the
+    lanes gather, counted by the kernel, plus inputs read and outputs
+    written once) and the serial bound: K1's and K2's grid steps times
+    one grid step's latency on an otherwise idle card (K1 on one read
+    alone: its kernel ms over its grid steps), K3's longest read's steps
+    times one step's latency of a read alone."""
+    import torch
+    sp0, _ = seeding_split(al, codes, lens, active, kernel=False)
+    sk0, _ = seeding_split(al, codes, lens, active, kernel=True)
+    sk, got = seeding_split(al, codes, lens, active, kernel=True)
+    sp, want = seeding_split(al, codes, lens, active, kernel=False)
+    for f in got["out"]._fields:
+        if not torch.equal(getattr(got["out"], f), getattr(want["out"], f)):
+            raise AssertionError(f"the split's seeds differ in {f}")
+    B = codes.shape[0]
+    log(f"[scale] seeding split of one primary batch ({B} reads, synced "
+        f"ms; first pass in brackets): kernels "
+        + ", ".join(f"{k} {v:.2f} [{sk0[k]:.2f}]" for k, v in sk.items())
+        + "; torch ops "
+        + ", ".join(f"{k} {v:.1f} [{sp0[k]:.1f}]" for k, v in sp.items())
+        + f"; torch ops / kernels {sp['total'] / sk['total']:.1f}x")
+    opt = al._dev_opt
+    S = al.shapes.max_smems
+    k1a = (al.dfm, al.lcp_tree, al.lcp_isa, codes, lens, active,
+           opt.min_seed_len, S, al.dref.codes16, 24)
+    job = got["job"]
+    k2a = (al.dfm, al.lcp_tree, al.lcp_isa, codes, lens, *job,
+           opt.min_seed_len, B, S)
+    k2kw = dict(into=got["k1"], sj_cap=16, ascent_cap=64, max_rounds=48)
+    k3a = (al.dfm, codes, lens, active, opt.max_mem_intv,
+           opt.min_seed_len + 1, S)
+    # one read alone: the first active one
+    r0 = int(torch.nonzero(active)[0])
+    one = lambda x: x[r0:r0 + 1]
+    lone = {
+        "smem_lcp": (al.dfm, al.lcp_tree, al.lcp_isa, one(codes),
+                     one(lens), one(active)) + k1a[6:],
+        "seed_strategy": (al.dfm, one(codes), one(lens),
+                          one(active)) + k3a[4:],
+    }
+    full = {"smem_lcp": (k1a, {}), "k2_lcp": (k2a, k2kw),
+            "seed_strategy": (k3a, {})}
+    plain = {"smem_lcp": sp["K1"], "k2_lcp": sp["K2"],
+             "seed_strategy": sp["K3"]}
+    in_bytes = 4 * codes.numel() + 5 * B
+    rows, step_us = {}, {}
+    for name, la in lone.items():
+        lone_ms = timed_ms(name, lambda: _seed_fn(name, 1)(*la))
+        _, lwork = seed_work(name, *la)
+        # K1 a grid step (a barrier and a step), K3 a step of one read
+        steps = lwork[1] if name == "smem_lcp" else lwork[2]
+        step_us[name] = 1e3 * lone_ms / max(steps, 1)
+        log(f"[scale] {name} on read {r0} alone: {lone_ms:.4f} ms for "
+            f"{steps} {'grid ' if name == 'smem_lcp' else ''}steps = "
+            f"{step_us[name]:.3f} us a step")
+    for name, (a, kw) in full.items():
+        out, work = seed_work(name, *a, **kw)
+        ms = timed_ms(name, lambda: _seed_fn(name, 1)(*a, **kw))
+        serial = 1e-3 * (work[3] * step_us["seed_strategy"]
+                         if name == "seed_strategy"
+                         else work[1] * step_us["smem_lcp"])
+        rows_out = out.count.numel()
+        nbytes = work[0] + in_bytes + 16 * int(out.count.sum()) + \
+            5 * rows_out + (24 * job[0].numel() if name == "k2_lcp" else 0)
+        b_ms, b_by = bound(nbytes, 0, 1.0)
+        log(f"[scale] {name} on the batch: kernel {ms:.3f} ms, plain "
+            f"{plain[name]:.1f} ms; {work[0]} table bytes gathered, "
+            f"{work[2]} lane steps, {work[1]} grid steps, longest lane's "
+            f"own steps {work[3]}; bound {b_ms:.5f} ms ({b_by}, {nbytes} "
+            f"bytes); serial bound {serial:.4f} ms; kernel / serial bound "
+            f"{ms / max(serial, 1e-9):.2f}")
+        rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain[name],
+                          bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rows
 
 
 class Unresolved:
@@ -1105,7 +1355,7 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     kernels.reset_launches()
     kernels.TIMED["sw_extend"] = []
     try:
-        with ChainLaunches() as p2:
+        with ChainLaunches() as p2, SeedLaunches(esc, keep=True) as sl:
             t0 = time.time()
             n = stream_mem(aligner, cli.read_batches([fq], batch),
                            lines.append)
@@ -1135,6 +1385,7 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
         f"launches, {sw_ms:.3f} ms of kernel time (CUDA events around each "
         f"launch) = {100 * sw_ms / (1e3 * wall):.3f}% of mem's wall")
     p2.report("scale", wall)
+    sl.report("scale", wall)
     log(f"[scale] peak device memory {peak / 2**30:.2f} GiB")
 
     # placement accuracy against the simulated truth
@@ -1161,8 +1412,16 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     if aligner.esc_reads and min(esc.launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched in the escalated "
                              f"rungs: {esc.launches}")
+    held = sl.hold("scale")
+    flavors = {r for _, r in held} - {"primary"}
+    if any(held[k, "primary"] <= 0 for k in SEED_KERNELS) or \
+            len(flavors) < len(set(esc.rungs)):
+        raise AssertionError(f"seeding launches held: {dict(held)}")
+    codes, lens, active = sl.primary[3:6]
+    rows = seed_rows(aligner, codes, lens, active)
+    del sl
     return launches, dict(prefix=prefix, fq=fq, reads=reads, lines=lines,
-                          aligner=aligner)
+                          aligner=aligner, seed_rows=rows)
 
 
 def _sync(dev):
@@ -1324,7 +1583,7 @@ def phase_engines(dev, ctx, batch):
         sw_ms = sum(s.elapsed_time(e) for s, e in kernels.TIMED["sw_extend"])
     finally:
         kernels.TIMED.pop("sw_extend", None)
-    launches = {k: kernels.LAUNCHES[k] for k in MEM_KERNELS}
+    launches = {k: kernels.LAUNCHES[k] for k in SWEEP_KERNELS}
     ours, theirs = by_qname(lines), by_qname(ctx["lines"])
     resolved = [n for n, s in zip(names, seqs) if not Unresolved.has(s)]
     differ = [n for n in resolved if ours.get(n) != theirs.get(n)]
@@ -1819,7 +2078,7 @@ def phase_pipeline_scale(dev, tmp, ctx, batch, n_dups):
     out = os.path.join(tmp, "pipeline.bam")
     kernels.reset_launches()
     p0 = {k: PROF.acc.get(k, 0.0) for k in ("POOL_WAIT", "SORT_FINISH")}
-    with ChainLaunches() as p2:
+    with ChainLaunches() as p2, SeedLaunches() as sl:
         t0 = time.time()
         n, nrec, ndup = cli.main(["pipeline", ctx["prefix"], fq, "-O", out,
                                   "-t", str(workers), "-b", str(batch)])
@@ -1831,6 +2090,7 @@ def phase_pipeline_scale(dev, tmp, ctx, batch, n_dups):
         f"finalize workers, batch {batch}); launches {launches}; s "
         f"{json.dumps(waits)}")
     p2.report("pipeline_scale", wall)
+    sl.report("pipeline_scale", wall)
 
     # the mem SAM of the same reads: the scale phase's lines, and the
     # planted copies aligned with the ids they have in the stream
@@ -1983,12 +2243,13 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
     kernels.TIMED["kswv"] = []
     kswv.kswv_forward_kernel = spy
     try:
-        torch.cuda.synchronize()
-        t0 = time.time()
-        n = stream_mem(aligner, cli.read_batches(fqs, batch), lines.append,
-                       paired=True)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        with SeedLaunches() as sl:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            n = stream_mem(aligner, cli.read_batches(fqs, batch),
+                           lines.append, paired=True)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
         k_ms = sum(a.elapsed_time(b) for a, b in kernels.TIMED["kswv"])
     finally:
         kswv.kswv_forward_kernel = real
@@ -2011,6 +2272,7 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
         f"launches, {jobs} jobs, {cells} cells, {k_ms:.3f} ms of kernel "
         f"time (CUDA events its C entry point records around each launch)"
         f" = {100 * k_ms / (1e3 * wall):.4f}% of the wall")
+    sl.report("pe_scale", wall)
     row = pe_kswv_launches(seen, rates)
     del seen
     log(f"[pe_scale] properly paired {proper:.4f}; MAPQ>=20 ends {conf}, "
@@ -2604,6 +2866,7 @@ def main(argv=None):
                     dev, tmp, genome_bp=4_600_000, n_reads=SCALE_READS,
                     batch=4096)
             launches.update(mem_launches)
+            rows.update(ctx["seed_rows"])
         if "engines" in phases:
             with phase_clock("engines"):
                 phase_engines(dev, ctx, 4096)
@@ -2644,6 +2907,15 @@ def main(argv=None):
                     "fgdp_tpu/ops/pairhmm_pallas.py:34"),
         "kswv": ("cuda", "fgdp_tpu_torch/csrc/kswv.cu",
                  "fgdp_tpu/ops/kswv.py:40 (D6, lax.fori_loop)"),
+        "smem_lcp": ("cuda", "fgdp_tpu_torch/csrc/smem_lcp.cu",
+                     "fgdp_tpu/ops/smem_lcp.py:50 smem_all_lcp (D2, its "
+                     "lax.while_loop waves :254-279)"),
+        "k2_lcp": ("cuda", "fgdp_tpu_torch/csrc/k2_lcp.cu",
+                   "fgdp_tpu/ops/smem_k2lcp.py:105 k2_reseed_lcp (D3, "
+                   "lax.while_loop)"),
+        "seed_strategy": ("cuda", "fgdp_tpu_torch/csrc/seed_strategy.cu",
+                          "fgdp_tpu/ops/smem.py:872 seed_strategy (D4, "
+                          "lax.while_loop)"),
         "vpu_ceiling": ("cuda", "fgdp_tpu_torch/csrc/vpu_ceiling.cu",
                         "scripts/bench_vpu_ceiling.py:44"),
         "gather_rows": ("cuda", "fgdp_tpu_torch/csrc/gather_rows.cu",

@@ -13,6 +13,12 @@ and K2 the ISA-jump + tree-ascent engine (ops/smem_k2lcp.py);
 FGDP_K2_SWEEP=1 sends K2 to the sweep instead. Without a tree, K1 and
 K2 run the self-restarting sweep (ops/smem_sweep.py), or with
 use_sweep=False the wave machine (ops/smem.py).
+
+On the card with a whole FM table, the LCP engine's K1 and K2 and every
+engine's K3 are one kernel launch each (csrc/smem_lcp.cu, k2_lcp.cu,
+seed_strategy.cu); what stays torch ops here has no loop: K2's job
+compaction (k2_jobs, lcp_job_pos), merge_lane_seeds and the final stable
+sort (merge_sorted).
 """
 
 from __future__ import annotations
@@ -44,6 +50,44 @@ def stable_sort2(key1, key2, *payload, dim: int = 1):
     o1 = torch.sort(k1, dim=dim, stable=True).indices
     order = o2.gather(dim, o1)
     return tuple(a.gather(dim, order) for a in (key1, key2) + payload)
+
+
+def k2_jobs(seeds: SeedBatch, opt: AlignConfig, split_len: int, NK: int):
+    """K2's jobs: the K1 SMEMs of at least split_len bases and at most
+    split_width occurrences, compacted GLOBALLY in (read, K1 slot) order
+    (the reference's matchArray scan order) into NK lanes. Returns
+    (qidx, k_read, job_x, job_mi, k_on, k2_overflow): the flat K1 slot,
+    read, midpoint and min_intv = occ + 1 of each lane, the lanes in use,
+    and the reads that own a job ranked past NK."""
+    B, S = seeds.m.shape
+    dev = seeds.m.device
+    slot_valid = torch.arange(S, device=dev)[None, :] < seeds.count[:, None]
+    qual = slot_valid & ((seeds.n + 1 - seeds.m) >= split_len) & \
+        (seeds.s <= opt.split_width)
+    fq = qual.reshape(-1)
+    l_src, k_on = compact_order(fq, NK)
+    qidx = torch.where(k_on, l_src, 0).long()
+    k_read = (qidx // S).to(_I32)
+    job_x = ((seeds.m + seeds.n + 1) >> 1).reshape(-1)[qidx]
+    job_mi = (seeds.s + 1).reshape(-1)[qidx]
+    # a read overflows iff it owns a qual job ranked past NK
+    ends = torch.cumsum(fq.to(_I32), 0, dtype=_I32).reshape(B, S)[:, -1]
+    starts = torch.cat([torch.zeros(1, dtype=_I32, device=dev), ends[:-1]])
+    k2_overflow = (ends > NK) & (ends > starts)
+    return qidx, k_read, job_x, job_mi, k_on, k2_overflow
+
+
+def lcp_job_pos(dfm: DeviceFMIndex, seeds: SeedBatch, qidx, job_x):
+    """The LCP K2 jobs' text position of q[job_x ..] (from the parent
+    seed's SA entry, or its direct position k = -pos - 2) and the match
+    length trusted from job_x (parent n - job_x + 1)."""
+    job_k = seeds.k.reshape(-1)[qidx]
+    job_m = seeds.m.reshape(-1)[qidx]
+    pos_occ = torch.where(job_k < -1, -job_k - 2,
+                          fmops.sa_lookup(dfm, job_k.clamp(min=0)))
+    job_pos = pos_occ + (job_x - job_m)
+    job_d0 = seeds.n.reshape(-1)[qidx] - job_x + 1
+    return job_pos, job_d0
 
 
 def collect_seeds(dfm: DeviceFMIndex, dref, codes, lens, active,
@@ -85,34 +129,14 @@ def collect_seeds(dfm: DeviceFMIndex, dref, codes, lens, active,
         seeds = smemops.smem_all_pos(
             dfm, dref.codes, dref.l_pac, codes, lens, ones, active,
             opt.min_seed_len, s_k1, prev_cap, ref_codes16=dref.codes16)
-    k1_count = seeds.count
 
-    # --- K2: qualifying K1 SMEMs re-seeded at their midpoint. Jobs are
-    # compacted GLOBALLY, ordered by (read, K1 slot) = the reference's
-    # matchArray scan order. ---
+    # --- K2: qualifying K1 SMEMs re-seeded at their midpoint ---
     S = seeds.m.shape[1]
-    slot_valid = torch.arange(S, device=dev)[None, :] < k1_count[:, None]
-    qual = slot_valid & ((seeds.n + 1 - seeds.m) >= split_len) & \
-        (seeds.s <= opt.split_width)
-    NK = B * k2_per_read
-    fq = qual.reshape(-1)
-    l_src, k_on = compact_order(fq, NK)
-    qidx = torch.where(k_on, l_src, 0).long()
-    k_read = (qidx // S).to(_I32)
-    job_x = ((seeds.m + seeds.n + 1) >> 1).reshape(-1)[qidx]
-    job_mi = (seeds.s + 1).reshape(-1)[qidx]
-    # a read overflows iff it owns a qual job ranked past NK
-    ends = torch.cumsum(fq.to(_I32), 0, dtype=_I32).reshape(B, S)[:, -1]
-    starts = torch.cat([torch.zeros(1, dtype=_I32, device=dev), ends[:-1]])
-    k2_overflow = (ends > NK) & (ends > starts)
+    qidx, k_read, job_x, job_mi, k_on, k2_overflow = k2_jobs(
+        seeds, opt, split_len, B * k2_per_read)
 
     if lcp_tree is not None and os.environ.get("FGDP_K2_SWEEP") != "1":
-        job_k = seeds.k.reshape(-1)[qidx]
-        job_m = seeds.m.reshape(-1)[qidx]
-        pos_occ = torch.where(job_k < -1, -job_k - 2,
-                              fmops.sa_lookup(dfm, job_k.clamp(min=0)))
-        job_pos = pos_occ + (job_x - job_m)
-        job_d0 = seeds.n.reshape(-1)[qidx] - job_x + 1
+        job_pos, job_d0 = lcp_job_pos(dfm, seeds, qidx, job_x)
         seeds = smem_k2lcp.k2_reseed_lcp(
             dfm, lcp_tree, lcp_isa, codes, lens, k_read, job_x, job_mi,
             job_pos, job_d0, k_on, opt.min_seed_len, B, s_k1, into=seeds,
@@ -140,7 +164,13 @@ def collect_seeds(dfm: DeviceFMIndex, dref, codes, lens, active,
     else:
         k3 = smemops._empty_seeds(B, 1, dev)
 
-    # --- merge + stable per-read sort by (m, n) ---
+    return merge_sorted(seeds, k3, k2_overflow)
+
+
+def merge_sorted(seeds: SeedBatch, k3: SeedBatch, k2_overflow) -> SeedBatch:
+    """K1 + K2 seeds and K3 seeds in one buffer a read, stably sorted by
+    (m, n); the overflow flags of both and of K2's job compaction."""
+    dev = seeds.m.device
     m = torch.cat([seeds.m, k3.m], dim=1)
     n = torch.cat([seeds.n, k3.n], dim=1)
     k = torch.cat([seeds.k, k3.k], dim=1)

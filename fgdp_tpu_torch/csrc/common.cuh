@@ -32,6 +32,34 @@ FGDP_HD int fgdp_ctz(unsigned x) {
 #endif
 }
 
+// read-only gathers of the seeding kernels' tables: through the
+// read-only data cache on the card
+FGDP_HD int fgdp_ld(const int* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// four ints at a 16-byte aligned address
+FGDP_HD void fgdp_ld4(const int* p, int o[4]) {
+#ifdef __CUDA_ARCH__
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+#else
+  for (int t = 0; t < 4; ++t) o[t] = p[t];
+#endif
+}
+
+// a 24-int row at a 16-byte aligned address
+FGDP_HD void fgdp_ld_row24(const int* p, int o[24]) {
+  for (int t = 0; t < 6; ++t) fgdp_ld4(p + 4 * t, o + 4 * t);
+}
+
 #ifdef __CUDACC__
 // A warp's 32 lanes, for the kernels' per-job logic (its host twin passes
 // a serial lane, or 32 lanes in lockstep, instead). A lane value (I) is

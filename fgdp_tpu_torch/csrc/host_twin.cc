@@ -1,9 +1,12 @@
 // Host twin of the CUDA kernels, for the CPU tests only: g++ builds the
 // kernels' own per-job (sw_extend.cuh, kswv.cuh), per-read
-// (chain_loop.cuh), per-pair (pairhmm.cuh) and per-element
-// (vpu_ceiling.cuh) logic into a plain C library, run with one serial
-// lane (the register paths of the chain loop, kswv and PairHMM with 32
-// lanes in lockstep), so the logic can be
+// (chain_loop.cuh, seed_strategy.cuh), per-pair (pairhmm.cuh) and
+// per-element (vpu_ceiling.cuh) logic into a plain C library, run with
+// one serial lane (the register paths of the chain loop, kswv and
+// PairHMM with 32 lanes in lockstep), the FM rank primitives (fm.cuh)
+// one interval at a time, and the seeding wave machines (smem_lcp.cuh,
+// k2_lcp.cuh) with every lane in one thread and the counts taken on the
+// host step by step, so the logic can be
 // held against the plain PyTorch versions where there is no nvcc. It
 // builds with -ffp-contract=off, so that no multiply and add fuse into
 // one rounding, as on the card. The port's CPU path never calls it; it
@@ -138,8 +141,12 @@ struct HostWarp {
 };
 
 #include "chain_loop.cuh"
+#include "fm.cuh"
+#include "k2_lcp.cuh"
 #include "kswv.cuh"
 #include "pairhmm.cuh"
+#include "seed_strategy.cuh"
+#include "smem_lcp.cuh"
 #include "sw_extend.cuh"
 #include "vpu_ceiling.cuh"
 
@@ -378,4 +385,102 @@ extern "C" int fgdp_vpu_ceiling_host(const void* x, void* out, long long n,
     case 16: vpu_host<16>(x, out, n, steps, is_int, k); return 0;
   }
   return 1;
+}
+
+// The seeding wave machines' grid with every lane in one thread: the
+// counts are the thread's own, and no thread comes before it.
+struct SerialGrid {
+  void sum4(const int loc[4], int tot[4]) const {
+    for (int t = 0; t < 4; ++t) tot[t] = loc[t];
+  }
+  int exscan(int) const { return 0; }
+};
+
+static FmView fm_view(const int* occ, long long nblocks, const int* counts,
+                      const int* c2, const int* sa, long long sa_len,
+                      int sentinel_row, int r1_row, int cc_r0, int cc_r1) {
+  return FmView{occ,    nblocks,      counts, c2,    sa,
+                sa_len, sentinel_row, r1_row, cc_r0, cc_r1};
+}
+
+#define FM_HOST_ARGS                                                       \
+  const int *occ, long long nblocks, const int *counts, const int *c2,     \
+      const int *sa, long long sa_len, int sentinel_row, int r1_row,       \
+      int cc_r0, int cc_r1
+#define FM_VIEW                                                        \
+  fm_view(occ, nblocks, counts, c2, sa, sa_len, sentinel_row, r1_row, \
+          cc_r0, cc_r1)
+
+// The rank primitives on n intervals: out int32[n, FM_HOST_COLS] holds
+// occ4(k) (4), backward_extend2(k, s, ca, cb) (k1, s1, k2, s2),
+// forward_extend2(k, l, s, ca, cb) (k1, l1, s1, k2, l2, s2),
+// init_interval(ca) (k, l, s) and sa_lookup(k).
+#define FM_HOST_COLS 18
+extern "C" int fgdp_fm_host(FM_HOST_ARGS, int n, const int* k, const int* l,
+                            const int* s, const int* ca, const int* cb,
+                            int* out) {
+  const FmView fm = FM_VIEW;
+  for (int i = 0; i < n; ++i) {
+    int* o = out + (long long)i * FM_HOST_COLS;
+    fm_occ4(fm, k[i], o);
+    fm_backward_extend2(fm, k[i], s[i], ca[i], cb[i], o[4], o[5], o[6],
+                        o[7]);
+    fm_forward_extend2(fm, k[i], l[i], s[i], ca[i], cb[i], o[8], o[9],
+                       o[10], o[11], o[12], o[13]);
+    fm_init_interval(fm, ca[i], o[14], o[15], o[16]);
+    o[17] = fm_sa_lookup(fm, k[i]);
+  }
+  return 0;
+}
+
+// K1 (fgdp_smem_lcp's arguments but the launch's scratch and stream)
+extern "C" int fgdp_smem_lcp_host(
+    FM_HOST_ARGS, const int* tree, const int* isa, const int* codes,
+    const int* lens, const unsigned char* active, const long long* words,
+    long long nwords, int B, int L, int N, int l2ref, int msl, int S,
+    int max_rounds, int* out_m, int* out_n, int* out_k, int* out_s,
+    int* count, unsigned char* overflow) {
+  const LcpArgs A{FM_VIEW, tree, isa, codes, lens, active, words, nwords,
+                  B, L, N, l2ref, msl,
+                  SeedRows{out_m, out_n, out_k, out_s, S}, count, overflow,
+                  nullptr};
+  std::vector<LcpLane> ln(B);
+  for (int i = 0; i < B; ++i) lcp_lane_init(A, ln[i], i);
+  SerialGrid g;
+  lcp_machine(A, g, ln, max_rounds);
+  for (int i = 0; i < B; ++i) lcp_lane_finish(A, ln[i]);
+  return 0;
+}
+
+// K2 (fgdp_k2_lcp's arguments but the launch's scratch and stream)
+extern "C" int fgdp_k2_lcp_host(
+    FM_HOST_ARGS, const int* tree, const int* isa, const int* codes,
+    const int* lens, const int* k_read, const int* job_x, const int* job_mi,
+    const int* job_pos, const int* job_d0, const unsigned char* k_on, int NK,
+    int L, int N, int l2ref, int msl, int sj_cap, int ascent_cap,
+    int max_rounds, int* out_m, int* out_n, int* out_k, int* out_s,
+    int* count, unsigned char* overflow) {
+  const K2Args A{FM_VIEW, tree, isa, codes, lens, k_read, job_x, job_mi,
+                 job_pos, job_d0, k_on, NK, L, N, l2ref, msl, ascent_cap,
+                 SeedRows{out_m, out_n, out_k, out_s, sj_cap}, count,
+                 overflow, nullptr};
+  std::vector<K2Lane> ln(NK);
+  for (int i = 0; i < NK; ++i) k2_lane_init(A, ln[i], i);
+  SerialGrid g;
+  k2_machine(A, g, ln, max_rounds);
+  for (int i = 0; i < NK; ++i) k2_lane_finish(A, ln[i]);
+  return 0;
+}
+
+// K3 (fgdp_seed_strategy's arguments but the events and stream)
+extern "C" int fgdp_seed_strategy_host(
+    FM_HOST_ARGS, const int* codes, const int* lens,
+    const unsigned char* active, int B, int L, int max_intv, int msl, int S,
+    int* out_m, int* out_n, int* out_k, int* out_s, int* count,
+    unsigned char* overflow) {
+  const K3Args A{FM_VIEW, codes, lens, active, B, L, max_intv, msl,
+                 SeedRows{out_m, out_n, out_k, out_s, S}, count, overflow,
+                 nullptr};
+  for (int rd = 0; rd < B; ++rd) k3_read(A, rd);
+  return 0;
 }

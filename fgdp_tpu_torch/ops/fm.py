@@ -57,6 +57,15 @@ def table_rows(table) -> int:
     return table.rows if isinstance(table, ShardedRows) else table.shape[0]
 
 
+def is_sharded(fm) -> bool:
+    """Whether the occ rows or the SA of `fm` are a ShardedRows block (the
+    fm-sharded mesh). The seeding kernels take whole tables: a gather
+    from a sharded one is an all_reduce, which a kernel cannot make, so
+    these run the torch-op loops."""
+    return isinstance(fm.occ_fused, ShardedRows) or \
+        isinstance(fm.sa, ShardedRows)
+
+
 def gather_rows(table, idx):
     """table[idx] with idx clamped to the table's rows (the JAX package's
     mode="clip"). For a sharded table every rank of its group must make
@@ -347,3 +356,22 @@ def sa_lookup(fm: DeviceFMIndex, idx):
     """SA[idx] gather, clamped to the table (the JAX package's
     mode="clip")."""
     return gather_rows(fm.sa, idx)
+
+
+def kernel_args(fm: DeviceFMIndex, dev, what: str):
+    """(tensors to keep alive, the FM-index as the seeding kernels' C entry
+    points take it: occ, nblocks, counts, c2, sa, sa_len, sentinel_row,
+    r1_row, cc_r0, cc_r1). Raises unless the tables lie whole on `dev`."""
+    from . import kernels
+
+    if is_sharded(fm):
+        raise ValueError(f"{what}: the kernel takes whole FM tables, not "
+                         "ShardedRows blocks")
+    occ, counts, c2, sa = (
+        kernels.tensor_arg(t, dev, _I32, f"{what}: the FM index's {n}")
+        for t, n in ((fm.occ_fused, "occ rows"), (fm.counts, "counts"),
+                     (fm.c2, "c2"), (fm.sa, "SA")))
+    keep = (occ, counts, c2, sa)
+    return keep, [occ.data_ptr(), occ.shape[0], counts.data_ptr(),
+                  c2.data_ptr(), sa.data_ptr(), sa.shape[0],
+                  fm.sentinel_row, fm.r1_row, fm.cc_r0, fm.cc_r1]

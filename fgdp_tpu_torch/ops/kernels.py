@@ -1,7 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, kswv.cu,
-pairhmm.cu, and the probes' vpu_ceiling.cu and gather_rows.cu) is compiled by nvcc for sm_90a into its own shared library with a plain C
+pairhmm.cu, the seeding kernels smem_lcp.cu, k2_lcp.cu and
+seed_strategy.cu, and the probes' vpu_ceiling.cu and gather_rows.cu) is
+compiled by nvcc for sm_90a into its own shared library with a plain C
 interface under build/fgdp_tpu_torch/ at the repository root, and bound
 with ctypes. The build happens at first use (one nvcc per source, all started
 together) and again whenever a source is newer than its library.
@@ -12,8 +14,9 @@ cudaGetLastError(); `check` raises when that is not 0.
 build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
 or 32 lanes in lockstep for the register paths of the chain loop, kswv
-and PairHMM), which the CPU tests hold against the plain PyTorch versions. The
-port never runs it.
+and PairHMM; the seeding wave machines with every lane in one thread and
+their counts taken step by step), which the CPU tests hold against the
+plain PyTorch versions. The port never runs it.
 """
 
 from __future__ import annotations
@@ -26,16 +29,21 @@ import subprocess
 import tempfile
 import time
 
+import torch
+
 from ..io.native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-KERNELS = ("chain_loop", "gather_rows", "kswv", "pairhmm", "sw_extend",
-           "vpu_ceiling")
+KERNELS = ("chain_loop", "gather_rows", "k2_lcp", "kswv", "pairhmm",
+           "seed_strategy", "smem_lcp", "sw_extend", "vpu_ceiling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the FM-index as the seeding kernels take it (ops/fm.py's DeviceFMIndex):
+# occ, nblocks, counts, c2, sa, sa_len and its four int scalars
+_FM = [_P, _LL, _P, _P, _P, _LL] + [_I] * 4
 # argument types of each C entry point: every pointer and the stream as
 # c_void_p (ctypes would cut a Python int to 32 bits otherwise)
 _SIGS = {
@@ -56,6 +64,17 @@ _SIGS = {
     "fgdp_vpu_ceiling": [_P, _P, _LL] + [_I] * 3 + [_P] * 6 + [_P],
     "fgdp_vpu_ceiling_host": [_P, _P, _LL] + [_I] * 3 + [_P] * 6,
     "fgdp_gather_rows": [_P] * 3 + [_LL] + [_I] * 2 + [_P],
+    "fgdp_smem_lcp": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6
+    + [_P] * 3 + [_P] * 3,
+    "fgdp_smem_lcp_host": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6,
+    "fgdp_smem_lcp_max_blocks": [_I],
+    "fgdp_k2_lcp": _FM + [_P] * 10 + [_I] * 8 + [_P] * 6 + [_P] * 3
+    + [_P] * 3,
+    "fgdp_k2_lcp_host": _FM + [_P] * 10 + [_I] * 8 + [_P] * 6,
+    "fgdp_k2_lcp_max_blocks": [_I],
+    "fgdp_seed_strategy": _FM + [_P] * 3 + [_I] * 5 + [_P] * 7 + [_P] * 3,
+    "fgdp_seed_strategy_host": _FM + [_P] * 3 + [_I] * 5 + [_P] * 6,
+    "fgdp_fm_host": _FM + [_I] + [_P] * 6,
 }
 
 _libs: dict = {}
@@ -68,9 +87,9 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA event pairs (start, end) around each launch of a kernel, recorded
 # only while a caller has put a list under its name (the smoke run's
 # scale phases sum them into the kernel's time on the main path). The C
-# entry points of SW, the chain loop, kswv and PairHMM record the pair
-# themselves, right around the launch, so no host time falls between the
-# two events.
+# entry points of SW, the chain loop, kswv, PairHMM and the seeding
+# kernels record the pair themselves, right around the launch, so no host
+# time falls between the two events.
 TIMED: dict = {}
 
 
@@ -162,6 +181,46 @@ def check(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def tensor_arg(x, dev, dtype, what: str):
+    """x as a contiguous `dtype` tensor for a C entry point; raises unless
+    it lies on `dev`."""
+    if x.device != dev:
+        raise ValueError(f"{what} is on {x.device}, not on {dev}")
+    return x.to(dtype).contiguous()
+
+
+def work_ptr(work, dev, what: str):
+    """The address of a seeding kernel's work counters (a zeroed int64[4]
+    on `dev`, csrc/seed_waves.cuh), or None when not asked for."""
+    if work is None:
+        return None
+    if work.device != dev or work.dtype != torch.int64 or \
+            work.shape != (4,):
+        raise ValueError(f"{what}: work must be int64[4] on {dev}")
+    return work.data_ptr()
+
+
+def launch(name: str, fn, *args, device):
+    """Call the C entry point fn(*args, ev_start, ev_end, stream) on the
+    current stream of `device`, with an event pair appended to
+    TIMED[name] when a caller asked for it (the C side records the pair
+    around its launch; a first record here makes torch create the
+    events); raises when the launch fails, else counts it."""
+    timed = TIMED.get(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        ev = [None, None]
+        if timed is not None:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            for e in ev:
+                e.record(stream)
+            timed.append(ev)
+        rc = fn(*args, *(e.cuda_event if e is not None else None
+                         for e in ev), stream.cuda_stream)
+    check(rc, name)
+    LAUNCHES[name] += 1
+
+
 def build_host_twin():
     """g++ build of csrc/host_twin.cc (test aid); returns the library."""
     lib = _libs.get("host_twin")
@@ -169,7 +228,8 @@ def build_host_twin():
         so = _so("host_twin")
         if _stale(so):
             proc, tmp = _start(["g++", "-O2", "-std=c++17", "-shared",
-                                "-fPIC", "-ffp-contract=off", "-I", CSRC,
+                                "-fPIC", "-ffp-contract=off", "-fwrapv",
+                                "-I", CSRC,
                                 os.path.join(CSRC, "host_twin.cc")], so)
             _finish("host_twin", proc, tmp, so, time.time())
         lib = _libs["host_twin"] = _bind(so)

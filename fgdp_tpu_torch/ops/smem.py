@@ -11,7 +11,10 @@ becomes a Python loop of batched tensor steps whose exit test reads the
 lanes' state on the host before every step, so every loop stops where
 the JAX package's stops (its step caps are host counters here). Only
 K3 tests every 8 steps: its body is a no-op for finished lanes, so the
-extra steps change nothing.
+extra steps change nothing. On the card K3 is one launch of the
+hand-written kernel csrc/seed_strategy.cu (D4, one thread a read running
+its own steps); `seed_strategy` takes it for CUDA tensors with a whole FM
+table, and the plain loop for CPU tensors and ShardedRows tables.
 
 The wave machine (smem_all_pos, smem_one_pos_lanes) is the fallback K1
 and K2 engine (align/seeding.py `use_sweep=False`) and the reference the
@@ -31,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from . import fm as fmops
+from . import kernels
 from .fm import DeviceFMIndex
 from ..index.reference import packed_window
 
@@ -771,6 +775,46 @@ def seed_strategy(fm: DeviceFMIndex, codes, lens, active, max_intv: int,
     step is either an anchor restart or a two-char forward extension per
     lane. The JAX package's optional straggler tiering (tail_frac) is
     off on its main path and is not ported."""
+    fn = seed_strategy_kernel if codes.is_cuda and \
+        not fmops.is_sharded(fm) else seed_strategy_plain
+    return fn(fm, codes, lens, active, max_intv, min_seed_len, max_seeds)
+
+
+def seed_strategy_kernel(fm: DeviceFMIndex, codes, lens, active,
+                         max_intv: int, min_seed_len: int,
+                         max_seeds: int, work=None) -> SeedBatch:
+    """Launch csrc/seed_strategy.cu on CUDA tensors; returns what
+    `seed_strategy_plain` returns. `work`, a zeroed int64[4] on the card,
+    receives the launch's work counters (csrc/seed_waves.cuh)."""
+    B, L = codes.shape
+    dev = codes.device
+    what = "seed_strategy kernel"
+    _keep, fm_args = fmops.kernel_args(fm, dev, what)
+    arg = lambda x, dt, n: kernels.tensor_arg(x, dev, dt, f"{what}: {n}")
+    codes_c = arg(codes, _I32, "codes")
+    lens_c = arg(lens, _I32, "lens")
+    act_c = arg(active, torch.bool, "active")
+    if lens_c.shape != (B,) or act_c.shape != (B,):
+        raise ValueError(f"{what}: lens/active must be [{B}]")
+    m, n, k, s = (torch.zeros((B, max_seeds), dtype=_I32, device=dev)
+                  for _ in range(4))
+    count = torch.empty(B, dtype=_I32, device=dev)
+    ovf = torch.empty(B, dtype=torch.bool, device=dev)
+    lib = kernels.load("seed_strategy")
+    kernels.launch(
+        "seed_strategy", lib.fgdp_seed_strategy, *fm_args,
+        codes_c.data_ptr(), lens_c.data_ptr(), act_c.data_ptr(), B, L,
+        max_intv, min_seed_len, max_seeds, m.data_ptr(), n.data_ptr(),
+        k.data_ptr(), s.data_ptr(), count.data_ptr(), ovf.data_ptr(),
+        kernels.work_ptr(work, dev, what), device=dev)
+    return SeedBatch(m=m, n=n, k=k, s=s, count=count, overflow=ovf)
+
+
+def seed_strategy_plain(fm: DeviceFMIndex, codes, lens, active,
+                        max_intv: int, min_seed_len: int,
+                        max_seeds: int) -> SeedBatch:
+    """The plain version: the JAX package's K3 loop as a Python loop of
+    torch ops."""
     B, L = codes.shape
     seeds0 = _empty_seeds(B, max_seeds, codes.device)
     return _seed_strategy_loop(fm, codes, lens, active, max_intv,

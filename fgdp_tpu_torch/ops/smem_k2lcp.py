@@ -14,11 +14,19 @@ interval of q[x..n] needs no forward search:
   4. Backward pass: the K1 single-pass engine with the death threshold
      s >= min_intv and a stop when the match no longer covers x.
 
-Each JAX `while_loop` is a Python loop of batched steps. The ascent and
-forward loops are no-ops for finished lanes, but the ascent's step cap
-counts steps, so both test their exit condition before every step as
-the JAX package does; the wave loops test their population conditions
-before every step too, since those decide the overflow flags.
+On the card steps 1-4 are one launch of the hand-written kernel
+csrc/k2_lcp.cu (D3, on the rank device functions of csrc/fm.cuh, D1),
+and merge_lane_seeds scatters its lane rows into the reads' rows.
+`k2_reseed_lcp_plain` beside it is the same function with each JAX
+`while_loop` a Python loop of batched steps. The ascent and forward
+loops are no-ops for finished lanes, but the ascent's step cap counts
+steps, so both test their exit condition before every step as the JAX
+package does; the wave loops test their population conditions before
+every step too, since those decide the overflow flags.
+
+`k2_reseed_lcp` takes the kernel for CUDA tensors with a whole FM table,
+and the plain version for CPU tensors and for a table of ShardedRows;
+a failing launch raises.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from . import fm as fmops
+from . import kernels
 from .smem import LaneSeeds, _append_seed, any_by, merge_lane_seeds
 from .smem import _read_base_at
 
@@ -73,6 +82,75 @@ def k2_reseed_lcp(fm: fmops.DeviceFMIndex, tree, isa, codes, lens,
     q[job_x ..] backing the job; job_d0 = parent_n - job_x + 1 (trusted
     match length from x). Returns the merged per-read SeedBatch
     (into=K1 seeds)."""
+    fn = k2_reseed_lcp_kernel if codes.is_cuda and \
+        not fmops.is_sharded(fm) else k2_reseed_lcp_plain
+    return fn(fm, tree, isa, codes, lens, k_read, job_x, job_mi, job_pos,
+              job_d0, k_on, min_seed_len, B, max_seeds, into=into,
+              sj_cap=sj_cap, ascent_cap=ascent_cap, max_rounds=max_rounds)
+
+
+def _merge(lanes: LaneSeeds, lane_ovf, k_read, k_on, B, max_seeds, into):
+    """The lanes' rows merged into the reads' (after `into`); a read
+    flags overflow where one of its jobs does."""
+    seeds = merge_lane_seeds(lanes, k_read, torch.zeros_like(k_read),
+                             k_on, B, max_seeds, into=into)
+    ovf = any_by(k_read, lane_ovf & k_on, B)
+    return seeds._replace(overflow=seeds.overflow | ovf)
+
+
+def k2_reseed_lcp_kernel(fm, tree, isa, codes, lens, k_read, job_x,
+                         job_mi, job_pos, job_d0, k_on, min_seed_len: int,
+                         B: int, max_seeds: int, into=None, sj_cap: int = 16,
+                         ascent_cap: int = 64, max_rounds: int = 48,
+                         work=None):
+    """Launch csrc/k2_lcp.cu on CUDA tensors and merge its lane rows;
+    returns what `k2_reseed_lcp_plain` returns. `work` as
+    smem_lcp.smem_all_lcp_kernel's."""
+    NK = k_read.shape[0]
+    L = codes.shape[1]
+    dev = codes.device
+    what = "k2_lcp kernel"
+    _keep, fm_args = fmops.kernel_args(fm, dev, what)
+    arg = lambda x, dt, n: kernels.tensor_arg(x, dev, dt, f"{what}: {n}")
+    tree_c = arg(tree, _I32, "tree")
+    isa_c = arg(isa, _I32, "isa")
+    codes_c = arg(codes, _I32, "codes")
+    lens_c = arg(lens, _I32, "lens")
+    jobs = [arg(x, _I32, n) for x, n in (
+        (k_read, "k_read"), (job_x, "job_x"), (job_mi, "job_mi"),
+        (job_pos, "job_pos"), (job_d0, "job_d0"))]
+    on_c = arg(k_on, torch.bool, "k_on")
+    if any(x.shape != (NK,) for x in jobs + [on_c]) or tree_c.dim() != 2 \
+            or tree_c.shape[1] != 4:
+        raise ValueError(f"{what}: the job arrays must be [{NK}], tree "
+                         "[N + 1, 4]")
+    m, n, k, s = (torch.zeros((NK, sj_cap), dtype=_I32, device=dev)
+                  for _ in range(4))
+    count = torch.empty(NK, dtype=_I32, device=dev)
+    lane_ovf = torch.empty(NK, dtype=torch.bool, device=dev)
+    lib = kernels.load("k2_lcp")
+    sets = torch.zeros(12, dtype=_I32, device=dev)
+    blk = torch.empty(lib.fgdp_k2_lcp_max_blocks(NK), dtype=_I32,
+                      device=dev)
+    kernels.launch(
+        "k2_lcp", lib.fgdp_k2_lcp, *fm_args, tree_c.data_ptr(),
+        isa_c.data_ptr(), codes_c.data_ptr(), lens_c.data_ptr(),
+        *(x.data_ptr() for x in jobs), on_c.data_ptr(), NK, L,
+        tree_c.shape[0] - 1, 2 * fm.n_ref, min_seed_len, sj_cap, ascent_cap,
+        max_rounds, m.data_ptr(), n.data_ptr(), k.data_ptr(), s.data_ptr(),
+        count.data_ptr(), lane_ovf.data_ptr(), sets.data_ptr(),
+        blk.data_ptr(), kernels.work_ptr(work, dev, what), device=dev)
+    lanes_out = LaneSeeds(m=m, n=n, k=k, s=s, count=count, overflow=lane_ovf)
+    return _merge(lanes_out, lane_ovf, k_read, k_on, B, max_seeds, into)
+
+
+def k2_reseed_lcp_plain(fm: fmops.DeviceFMIndex, tree, isa, codes, lens,
+                        k_read, job_x, job_mi, job_pos, job_d0, k_on,
+                        min_seed_len: int, B: int, max_seeds: int,
+                        into=None, sj_cap: int = 16, ascent_cap: int = 64,
+                        max_rounds: int = 48):
+    """The plain version: the JAX package's k2_reseed_lcp as Python loops
+    of torch ops."""
     NK = k_read.shape[0]
     dev = codes.device
     N = tree.shape[0] - 1
@@ -211,7 +289,4 @@ def k2_reseed_lcp(fm: fmops.DeviceFMIndex, tree, isa, codes, lens,
 
     lanes = st["seeds"]
     lane_ovf = lanes.overflow | asc_ovf | masc_ovf | unfinished
-    seeds = merge_lane_seeds(lanes, k_read, torch.zeros_like(k_read),
-                             k_on, B, max_seeds, into=into)
-    ovf = any_by(k_read, lane_ovf & k_on, B)
-    return seeds._replace(overflow=seeds.overflow | ovf)
+    return _merge(lanes, lane_ovf, k_read, k_on, B, max_seeds, into)

@@ -13,13 +13,21 @@ Three alternating waves, as in the JAX package:
         chars per step; re-entering the row space costs one ISA gather
   SHR   LCP-tree ascent to the deepest extendable ancestor
 
-Each JAX `while_loop` is a Python loop of batched tensor steps here, and
-each wave tests its exit condition (the mode's population against 1/8
-of the live lanes) before every step, exactly as the JAX package does:
-the straggler cascade and the round caps decide which reads flag
-overflow, so the step sequence must be the same for the escalation
-ladder to see the same reads. Walk-resolved seeds carry the direct
-position encoding k = -pos - 2.
+On the card the whole machine is one launch of the hand-written kernel
+csrc/smem_lcp.cu (D2, on the rank device functions of csrc/fm.cuh, D1).
+`smem_all_lcp_plain` beside it is the same machine as a Python loop of
+batched tensor steps: each JAX `while_loop` is a host loop whose waves
+test their exit condition (the mode's population against 1/8 of the
+live lanes) before every step, exactly as the JAX package does: the
+straggler cascade and the round caps decide which reads flag overflow,
+so the step sequence must be the same for the escalation ladder to see
+the same reads. Walk-resolved seeds carry the direct position encoding
+k = -pos - 2.
+
+`smem_all_lcp` takes the kernel for CUDA tensors with a whole FM table,
+and the plain version for CPU tensors and for a table of ShardedRows
+(the fm-sharded mesh: its gathers are all_reduces, which a kernel
+cannot make); a failing launch raises.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from . import fm as fmops
+from . import kernels
 from .smem import (SeedBatch, _append_seed, _empty_seeds, _read_base_at,
                    any_by)
 from .smem_sweep import WALK_T, pack_reads, read_window
@@ -53,6 +62,57 @@ def smem_all_lcp(fm: fmops.DeviceFMIndex, tree, isa, codes, lens, active,
     Straggler control: each wave exits once its mode's population drops
     to 1/8 of the live lanes, and reads still live after the round
     budget flag overflow for the host escalation ladder."""
+    fn = smem_all_lcp_kernel if codes.is_cuda and not fmops.is_sharded(fm) \
+        else smem_all_lcp_plain
+    return fn(fm, tree, isa, codes, lens, active, min_seed_len, max_seeds,
+              ref_codes16, max_rounds)
+
+
+def smem_all_lcp_kernel(fm, tree, isa, codes, lens, active,
+                        min_seed_len: int, max_seeds: int, ref_codes16,
+                        max_rounds: int = 24, work=None) -> SeedBatch:
+    """Launch csrc/smem_lcp.cu on CUDA tensors; returns what
+    `smem_all_lcp_plain` returns. `work`, a zeroed int64[4] on the card,
+    receives the launch's work counters (csrc/seed_waves.cuh)."""
+    B, L = codes.shape
+    dev = codes.device
+    what = "smem_lcp kernel"
+    _keep, fm_args = fmops.kernel_args(fm, dev, what)
+    arg = lambda x, dt, n: kernels.tensor_arg(x, dev, dt, f"{what}: {n}")
+    tree_c = arg(tree, _I32, "tree")
+    isa_c = arg(isa, _I32, "isa")
+    codes_c = arg(codes, _I32, "codes")
+    lens_c = arg(lens, _I32, "lens")
+    act_c = arg(active, torch.bool, "active")
+    words = arg(ref_codes16, torch.int64, "ref_codes16")
+    if lens_c.shape != (B,) or act_c.shape != (B,) or tree_c.dim() != 2 \
+            or tree_c.shape[1] != 4:
+        raise ValueError(f"{what}: lens/active must be [{B}], tree "
+                         "[N + 1, 4]")
+    m, n, k, s = (torch.zeros((B, max_seeds), dtype=_I32, device=dev)
+                  for _ in range(4))
+    count = torch.empty(B, dtype=_I32, device=dev)
+    ovf = torch.empty(B, dtype=torch.bool, device=dev)
+    lib = kernels.load("smem_lcp")
+    sets = torch.zeros(12, dtype=_I32, device=dev)
+    blk = torch.empty(lib.fgdp_smem_lcp_max_blocks(B), dtype=_I32,
+                      device=dev)
+    kernels.launch(
+        "smem_lcp", lib.fgdp_smem_lcp, *fm_args, tree_c.data_ptr(),
+        isa_c.data_ptr(), codes_c.data_ptr(), lens_c.data_ptr(),
+        act_c.data_ptr(), words.data_ptr(), words.shape[0], B, L,
+        tree_c.shape[0] - 1, 2 * fm.n_ref, min_seed_len, max_seeds,
+        max_rounds, m.data_ptr(), n.data_ptr(), k.data_ptr(), s.data_ptr(),
+        count.data_ptr(), ovf.data_ptr(), sets.data_ptr(), blk.data_ptr(),
+        kernels.work_ptr(work, dev, what), device=dev)
+    return SeedBatch(m=m, n=n, k=k, s=s, count=count, overflow=ovf)
+
+
+def smem_all_lcp_plain(fm: fmops.DeviceFMIndex, tree, isa, codes, lens,
+                       active, min_seed_len: int, max_seeds: int,
+                       ref_codes16, max_rounds: int = 24) -> SeedBatch:
+    """The plain version: the machine as a Python loop of torch ops (the
+    JAX package's smem_all_lcp, transcribed)."""
     B, L = codes.shape
     dev = codes.device
     N = tree.shape[0] - 1            # SA rows

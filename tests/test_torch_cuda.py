@@ -475,6 +475,104 @@ def random_sam(seed, n_pairs=200, n_singles=60):
     return [ln for i in rng.permutation(len(groups)) for ln in groups[i]]
 
 
+def gen_genome(n, seed=0):
+    """scripts/gen_genome.py's repeat-rich genome of n bp (uint8 codes)."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "gen_genome", os.path.join(root, "scripts", "gen_genome.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.generate(n, seed)
+
+
+def seed_index(g):
+    """The port's host index of genome g: (PackedReference, FMIndex,
+    LcpTree) as `index` builds them."""
+    from fgdp_tpu_torch.index.fmindex import FMIndex
+    from fgdp_tpu_torch.index.lcptree import LcpTree
+    from fgdp_tpu_torch.index.reference import PackedReference
+    from fgdp_tpu_torch.utils import dna
+
+    pref = PackedReference.from_contigs(["chr"], [g])
+    fm = FMIndex.build(pref.codes)
+    x = np.concatenate([pref.codes, dna.revcomp(pref.codes)]) \
+        .astype(np.uint8)
+    return pref, fm, LcpTree.build(x, fm.sa)
+
+
+def seed_tables(index, device):
+    """(DeviceFMIndex, DeviceReference, tree, isa) of seed_index's index
+    on `device`."""
+    from fgdp_tpu_torch.index.reference import DeviceReference
+    from fgdp_tpu_torch.ops.fm import DeviceFMIndex
+
+    pref, fm, lt = index
+    return (DeviceFMIndex.from_host(fm, device=device),
+            DeviceReference(pref, device=device),
+            torch.as_tensor(lt.tree, device=device),
+            torch.as_tensor(lt.isa, device=device))
+
+
+def seed_reads(g, B, L, seed):
+    """B reads of at most L bases for the seeding kernels, from a numpy
+    seed: copies of g (either strand, 1% substitutions, a 1-3 base indel
+    in a tenth), lengths L/2 to L with the tail padded with 4; every 7th
+    with a run of N, every 11th shorter than min_seed_len (19), every
+    13th of random bases, every 17th inactive. Returns codes int32[B, L],
+    lens int32[B], active bool[B]."""
+    rng = np.random.default_rng(seed)
+    codes = np.full((B, L), 4, np.int32)
+    lens = np.zeros(B, np.int32)
+    for i in range(B):
+        n = int(rng.integers(L // 2, L + 1))
+        if i % 11 == 5:
+            n = int(rng.integers(1, 19))
+        p = int(rng.integers(0, len(g) - n - 8))
+        s = g[p:p + n + 8].astype(np.int32)
+        if rng.random() < 0.1:
+            k, d = int(rng.integers(1, max(n - 1, 2))), int(rng.integers(1, 4))
+            s = np.concatenate([s[:k], s[k + d:]])
+        s = s[:n].copy()
+        mut = rng.random(n) < 0.01
+        s[mut] = (s[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        if rng.random() < 0.5:
+            s = (3 - s)[::-1]
+        if i % 13 == 6:
+            s = rng.integers(0, 4, n).astype(np.int32)
+        if i % 7 == 3:
+            a = int(rng.integers(0, n))
+            s[a:a + int(rng.integers(1, 4))] = 4
+        codes[i, :n] = s
+        lens[i] = n
+    active = np.arange(B) % 17 != 9
+    return codes, lens, active
+
+
+def seed_k1_inputs(tables, codes, lens, active):
+    """The K1 kernel's arguments but the caps, as collect_seeds gives
+    them (msl 19)."""
+    dfm, dref, tree, isa = tables
+    dev = tree.device
+    return (dfm, tree, isa, torch.as_tensor(codes, device=dev),
+            torch.as_tensor(lens, device=dev),
+            torch.as_tensor(active, device=dev), OPT.min_seed_len)
+
+
+def seed_k2_jobs(tables, codes, lens, k1, k2_per_read=2):
+    """K2's job arrays from K1 seeds, as collect_seeds makes them:
+    (k_read, job_x, job_mi, job_pos, job_d0, k_on)."""
+    from fgdp_tpu_torch.align import seeding
+
+    dfm = tables[0]
+    split_len = int(OPT.min_seed_len * OPT.split_factor + 0.499)
+    qidx, k_read, job_x, job_mi, k_on, _ = seeding.k2_jobs(
+        k1, OPT, split_len, codes.shape[0] * k2_per_read)
+    job_pos, job_d0 = seeding.lcp_job_pos(dfm, k1, qidx, job_x)
+    return k_read, job_x, job_mi, job_pos, job_d0, k_on
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -1176,3 +1274,130 @@ def test_exact_search_on_card_equals_cpu(dev):
     for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
         assert torch.equal(a.cpu(), b), i
     assert bool(out["cpu"][-1].any())
+
+
+# the seeding kernels at the escalation ladder's shapes: (B, scale) with
+# K1's max_seeds 160 x scale and max_rounds 24 x scale, K2's NK = 2 B
+# k2_scale jobs with sj_cap 16, ascent_cap 64 and max_rounds 48 times
+# k2_scale (k2_scale = scale here), K3's max_seeds 160 x scale; B 5 keeps
+# every lane in K1's cascade, B 100 is no power of two
+SEED_LADDER = ((5, 1), (100, 1), (128, 2), (512, 1), (1024, 2),
+               (2048, 4))
+
+
+@pytest.fixture(scope="module")
+def seed_ctx():
+    g = gen_genome(300_000, seed=0)
+    return g, seed_index(g)
+
+
+def _seed_equal(got, want, what):
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,scale", SEED_LADDER)
+def test_seed_kernels_equal_plain(dev, seed_ctx, B, scale):
+    """K1, K2 and K3 on the card, each launched (counted) and exactly
+    equal to its torch-op loop on the same CUDA inputs."""
+    from fgdp_tpu_torch.ops import smem, smem_k2lcp, smem_lcp
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = seed_reads(g, B, 151, seed=B + scale)
+    k1_args = seed_k1_inputs(t, codes, lens, active)
+    k1_caps = (160 * scale, t[1].codes16)
+    n0 = dict(kernels.LAUNCHES)
+    k1 = smem_lcp.smem_all_lcp(*k1_args, *k1_caps, max_rounds=24 * scale)
+    _seed_equal(k1, smem_lcp.smem_all_lcp_plain(*k1_args, *k1_caps,
+                                                max_rounds=24 * scale), "K1")
+    jobs = seed_k2_jobs(t, codes, lens, k1, k2_per_read=2 * scale)
+    kw = dict(into=k1, sj_cap=16 * scale, ascent_cap=64 * scale,
+              max_rounds=48 * scale)
+    k2_args = (t[0], t[2], t[3], k1_args[3], k1_args[4], *jobs,
+               OPT.min_seed_len, B, 160 * scale)
+    k2 = smem_k2lcp.k2_reseed_lcp(*k2_args, **kw)
+    _seed_equal(k2, smem_k2lcp.k2_reseed_lcp_plain(*k2_args, **kw), "K2")
+    k3_args = (t[0], k1_args[3], k1_args[4], k1_args[5], OPT.max_mem_intv,
+               OPT.min_seed_len + 1, 160 * scale)
+    k3 = smem.seed_strategy(*k3_args)
+    _seed_equal(k3, smem.seed_strategy_plain(*k3_args), "K3")
+    for name in ("smem_lcp", "k2_lcp", "seed_strategy"):
+        assert kernels.LAUNCHES[name] == n0[name] + 1, name
+    assert int(k2.count.sum()) >= int(k1.count.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_seed_kernels_tight_caps_equal_plain(dev, seed_ctx):
+    """Caps tight enough that K1's cascade drops lanes and its round cap
+    binds, max_seeds and sj_cap overflow and K2's ascents hit their cap."""
+    from fgdp_tpu_torch.ops import smem, smem_k2lcp, smem_lcp
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = seed_reads(g, 256, 250, seed=9)
+    k1_args = seed_k1_inputs(t, codes, lens, active)
+    k1 = smem_lcp.smem_all_lcp(*k1_args, 4, t[1].codes16, max_rounds=1)
+    _seed_equal(k1, smem_lcp.smem_all_lcp_plain(
+        *k1_args, 4, t[1].codes16, max_rounds=1), "K1")
+    assert bool(k1.overflow.any()) and bool((k1.count == 4).any())
+    wide = smem_lcp.smem_all_lcp(*k1_args, 160, t[1].codes16)
+    jobs = seed_k2_jobs(t, codes, lens, wide)
+    kw = dict(into=wide, sj_cap=1, ascent_cap=2, max_rounds=1)
+    k2_args = (t[0], t[2], t[3], k1_args[3], k1_args[4], *jobs,
+               OPT.min_seed_len, 256, 160)
+    _seed_equal(smem_k2lcp.k2_reseed_lcp(*k2_args, **kw),
+                smem_k2lcp.k2_reseed_lcp_plain(*k2_args, **kw), "K2")
+    k3_args = (t[0], k1_args[3], k1_args[4], k1_args[5], OPT.max_mem_intv,
+               OPT.min_seed_len + 1, 2)
+    k3 = smem.seed_strategy(*k3_args)
+    _seed_equal(k3, smem.seed_strategy_plain(*k3_args), "K3")
+    assert bool(k3.overflow.any())
+
+
+@pytest.mark.cuda
+def test_seed_kernels_time_each_launch_when_asked(dev, seed_ctx):
+    from fgdp_tpu_torch.ops import smem
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = seed_reads(g, 64, 151, seed=3)
+    args = (t[0], *(torch.as_tensor(a, device=dev)
+                    for a in (codes, lens, active)),
+            OPT.max_mem_intv, OPT.min_seed_len + 1, 160)
+    kernels.TIMED["seed_strategy"] = []
+    try:
+        smem.seed_strategy(*args)
+        pairs = kernels.TIMED["seed_strategy"]
+    finally:
+        kernels.TIMED.pop("seed_strategy", None)
+    torch.cuda.synchronize()
+    assert len(pairs) == 1 and pairs[0][0].elapsed_time(pairs[0][1]) > 0
+    # the work counters: two 96-byte rows a forward step, every step
+    work = torch.zeros(4, dtype=torch.int64, device=dev)
+    smem.seed_strategy_kernel(*args, work=work)
+    gathered, _, steps, longest = work.tolist()
+    assert steps >= longest > 0 and gathered % 192 == 0 and gathered > 0
+
+
+@pytest.mark.cuda
+def test_seed_kernels_loop_over_lanes_past_resident_threads(dev, seed_ctx):
+    """More reads than the card can hold resident threads (2,048 an SM):
+    K1's and K2's threads each loop over several lanes, their cascade
+    scan and counts over every lane, equal to the torch-op loops."""
+    from fgdp_tpu_torch.ops import smem_k2lcp, smem_lcp
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    B = torch.cuda.get_device_properties(dev).multi_processor_count * 2048 + 1
+    codes, lens, active = seed_reads(g, B, 101, seed=4)
+    k1_args = seed_k1_inputs(t, codes, lens, active)
+    k1 = smem_lcp.smem_all_lcp(*k1_args, 160, t[1].codes16)
+    _seed_equal(k1, smem_lcp.smem_all_lcp_plain(*k1_args, 160,
+                                                t[1].codes16), "K1")
+    jobs = seed_k2_jobs(t, codes, lens, k1)
+    k2_args = (t[0], t[2], t[3], k1_args[3], k1_args[4], *jobs,
+               OPT.min_seed_len, B, 160)
+    _seed_equal(smem_k2lcp.k2_reseed_lcp(*k2_args, into=k1),
+                smem_k2lcp.k2_reseed_lcp_plain(*k2_args, into=k1), "K2")
