@@ -21,7 +21,11 @@ fails loudly:
               path, with its path, ms per step of the longest read and
               its serial bound; kswv exactly equal on rescue jobs made as
               pe_scale makes them, at the register path's lane edges, on
-              the wide path and on a mostly empty batch); for SW, kswv
+              the wide path and on a mostly empty batch; the chain filter
+              D5 exactly equal at C 1-384 under three option sets, at the
+              ladder's (B, C) and on P2's bench output, with its ms, plain
+              ms, bytes and serial bounds and ptxas' registers and stack
+              frame); for SW, kswv
               and PairHMM also their warp rows and the SASS instructions of
               the row loops (of the chain loop's step loop), for SW each
               query-length class's share of its time
@@ -44,7 +48,13 @@ fails loudly:
               sync), the kernels against the torch-op loops in turns;
               each seeding kernel's ms on that batch, its bytes bound
               (the table bytes its lanes gather, counted by the kernel)
-              and its serial bound
+              and its serial bound; every chain filter (D5) launch held
+              exactly against its plain version, its launches and
+              summed ms by (B, C); the chain split of the first primary
+              batch (frac_rep, expand_seeds, P2, the weight and D5, each
+              ended by a sync; D5's kernel against its torch ops in
+              turns) and its filter ranks n_f; D5's ms, bounds and plain
+              ms on that batch and on the widest rung launch
   7. mutect_golden  `mutect` on tests/golden/mutect on the card, held
               against the reference binary's golden.vcf by
               tests/test_golden_vcf.py's rules
@@ -85,6 +95,8 @@ fails loudly:
               the (J, QP, TP) of the `mem` run's kswv launches, each held
               exactly against the plain version on its inputs, and kswv's
               timed case, bound and row-loop SASS on one of them,
+              D5's launches and summed ms and the chain split of its
+              first batch,
               the share properly paired, placement of confident ends and
               of the bait ends, the BAM's count and order, and the first
               128 pairs' SAM on the card equal to the port's CPU run
@@ -118,7 +130,8 @@ fails loudly:
               exact_search and inexact_search (z = 1) on 4,096 patterns of
               read length, card vs CPU and against RMIndex.lookup_host
               (runs right after scale, whose index and reads it uses)
-Then one JSON line of the kernels, the card line, and the result line.
+Each phase starts the port's profiler (PROF) from zero. Then one JSON
+line of the kernels, the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -146,9 +159,9 @@ WARM_SITES = 5
 # the seeding kernels of the LCP engine (K1, K2, K3), the kernels of
 # `mem`'s path, of paired-end `mem`, and of `mem` on the sweep engine
 SEED_KERNELS = ("smem_lcp", "k2_lcp", "seed_strategy")
-MEM_KERNELS = ("chain_loop", "sw_extend") + SEED_KERNELS
+MEM_KERNELS = ("chain_loop", "chain_flt", "sw_extend") + SEED_KERNELS
 PE_KERNELS = MEM_KERNELS + ("kswv",)
-SWEEP_KERNELS = ("chain_loop", "sw_extend", "seed_strategy")
+SWEEP_KERNELS = ("chain_loop", "chain_flt", "sw_extend", "seed_strategy")
 
 
 def log(msg):
@@ -157,7 +170,11 @@ def log(msg):
 
 @contextlib.contextmanager
 def phase_clock(name):
-    """Log the wall seconds of one phase."""
+    """Log the wall seconds of one phase; the port's profiler starts
+    each phase from zero, so a breakdown the CLI prints is the phase's
+    own."""
+    from fgdp_tpu_torch.utils.profiling import PROF
+    PROF.reset()
     t0 = time.time()
     yield
     log(f"[time] {name}: {time.time() - t0:.1f} s")
@@ -474,6 +491,7 @@ def phase_kernels(dev, rates):
             kernels_sw_split(q, qlen, t, tlen, h0, w, p, cells, ms)
 
     rows["chain_loop"] = kernels_chain(dev, rates)
+    rows["chain_flt"] = kernels_chain_flt(dev)
     rows["pairhmm"] = kernels_pairhmm(dev, rates)
     kernels_kswv(dev, rates)
     return rows
@@ -559,6 +577,125 @@ def kernels_chain(dev, rates):
             row = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by)
     return row
+
+
+def flt_dref(dev, is_alt):
+    """What chain_flt reads of a DeviceReference: the alt table."""
+    import torch
+    from types import SimpleNamespace
+    return SimpleNamespace(is_alt=torch.as_tensor(is_alt, device=dev),
+                           n_contigs=len(is_alt))
+
+
+def flt_stats(st, weight, opt, C):
+    """The batch's filter ranks n_f (max, mean, reads with two or more,
+    the read with the most) and the bytes the filter must move: n and
+    the six fields of each chain read once, the B x C flags written
+    once."""
+    import torch
+    n = st["n"].clamp(0, C)
+    B = n.numel()
+    have = torch.arange(C, device=n.device)[None, :] < n[:, None]
+    nf = (have & (weight >= opt.min_chain_weight)).sum(1)
+    return dict(max=int(nf.max()), mean=float(nf.float().mean()),
+                multi=int((nf > 1).sum()), longest=int(nf.argmax()),
+                nbytes=4 * B + 24 * int(n.sum()) + 4 * B * C)
+
+
+def flt_row(tag, st, weight, dref, opt, C, plain_ms=None):
+    """D5 on one launch's inputs: kernel ms (mean of 10 launches, the
+    events its C entry point records), plain ms (one call, synced,
+    unless given), the bytes bound and the serial one (the read with the
+    most filter ranks alone: its kernel ms, 20 launches); logged and
+    returned as a kernels-line row."""
+    from fgdp_tpu_torch.align import chain
+    from fgdp_tpu_torch.probes import wall_ms
+    ms = timed_ms("chain_flt", lambda: chain.chain_flt_kernel(
+        st, weight, dref, opt, C))
+    if plain_ms is None:
+        plain_ms, _ = wall_ms(lambda: chain.chain_flt_plain(
+            st, weight, dref, opt, C))
+    nf = flt_stats(st, weight, opt, C)
+    nbytes = nf["nbytes"] + dref.n_contigs
+    b_ms, b_by = bound(nbytes, 0, 1.0)
+    b = nf["longest"]
+    one = {f: st[f][b:b + 1].contiguous() for f in chain.FLT_FIELDS}
+    w1 = weight[b:b + 1].contiguous()
+    serial = timed_ms("chain_flt", lambda: chain.chain_flt_kernel(
+        one, w1, dref, opt, C), reps=20)
+    log(f"[{tag}] chain_flt B={weight.shape[0]} C={C}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.1f} ms; n_f max {nf['max']}, mean "
+        f"{nf['mean']:.3f}, {nf['multi']} reads with two or more; bound "
+        f"{b_ms:.5f} ms ({b_by}, {nbytes} bytes); serial bound "
+        f"{serial:.4f} ms (read {b} alone, {max(nf['max'] - 1, 0)} rank "
+        f"steps); kernel / serial bound {ms / max(serial, 1e-9):.2f}")
+    return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def kernels_chain_flt(dev):
+    """D5 against its plain version, exactly: at the warp's 32-rank
+    edges (C 1-384) under three option sets and at the ladder's (B, C)
+    (tests/test_torch_cuda.py's flt_tables, CHAIN_FLT_OPTS and
+    CHAIN_FLT_LADDER), and on P2's output at the bench shape (B 4,096,
+    P 256, C 64 from chain_inputs), whose row it returns; ptxas'
+    registers and stack frame."""
+    import dataclasses
+    import torch
+    from fgdp_tpu_torch.align import chain
+    from fgdp_tpu_torch.config import AlignConfig
+    from fgdp_tpu_torch.ops import kernels
+    from fgdp_tpu_torch.probes import wall_ms
+
+    opt = AlignConfig()
+    tc = load_file("tests/test_torch_cuda.py")
+
+    def check(tbl, C, o, is_alt):
+        st = {f: torch.as_tensor(tbl[f], device=dev)
+              for f in chain.FLT_FIELDS}
+        weight = torch.as_tensor(tbl["weight"], device=dev)
+        dref = flt_dref(dev, is_alt)
+        got = chain.chain_flt_kernel(st, weight, dref, o, C)
+        plain_ms, want = wall_ms(lambda: chain.chain_flt_plain(
+            st, weight, dref, o, C))
+        if not torch.equal(got, want):
+            raise AssertionError(f"chain_flt B={len(tbl['n'])} C={C} "
+                                 f"differs from its plain version")
+        return st, weight, dref, plain_ms
+
+    for C in tc.CHAIN_FLT_EDGE_CS:
+        for name, kw in sorted(tc.CHAIN_FLT_OPTS.items()):
+            check(tc.flt_tables(C, 40, C), C,
+                  dataclasses.replace(opt, **kw), tc.alt_table())
+    log(f"[kernels] chain_flt equal to its plain version at C "
+        f"{tc.CHAIN_FLT_EDGE_CS} x options {sorted(tc.CHAIN_FLT_OPTS)}")
+    for B, C in tc.CHAIN_FLT_LADDER:
+        st, weight, dref, plain_ms = check(tc.flt_tables(B + C, B, C), C,
+                                           opt, tc.alt_table())
+        ms = timed_ms("chain_flt", lambda: chain.chain_flt_kernel(
+            st, weight, dref, opt, C))
+        nf = flt_stats(st, weight, opt, C)
+        log(f"[kernels] chain_flt flt_tables B={B} C={C}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, n_f max {nf['max']} "
+            f"mean {nf['mean']:.1f}, bound "
+            f"{bound(nf['nbytes'], 0, 1.0)[0]:.5f} ms (bytes); equal: True")
+    for ln in kernels.build_log.get("chain_flt", {}).get("log", "") \
+            .splitlines():
+        if "registers" in ln or "stack" in ln:
+            log(f"[kernels] chain_flt ptxas: {ln.strip()}")
+    l_pac = 2_300_000
+    cols = [torch.as_tensor(a, device=dev)
+            for a in chain_inputs(261, 4096, 256, l_pac)]
+    st = chain.chain_loop_kernel(*cols, l_pac, 64, opt.w, opt.max_chain_gap)
+    weight = chain.chain_weight(st)
+    dref = flt_dref(dev, np.zeros(2, bool))
+    got = chain.chain_flt_kernel(st, weight, dref, opt, 64)
+    plain_ms, want = wall_ms(lambda: chain.chain_flt_plain(
+        st, weight, dref, opt, 64))
+    if not torch.equal(got, want):
+        raise AssertionError("chain_flt differs from its plain version on "
+                             "P2's bench output")
+    return flt_row("kernels", st, weight, dref, opt, 64, plain_ms)
 
 
 def lone_step_us(dev, C, l_pac, opt):
@@ -1031,6 +1168,158 @@ class ChainLaunches:
         return total
 
 
+class FltLaunches:
+    """D5's launches on a main-path run: the kernel ms of each from the
+    events its C entry point records, its (B, C), and with keep=True its
+    card inputs and output and the rung it ran in (the EscCounter's, None
+    for a primary batch), to be held against the plain version after the
+    run."""
+
+    def __init__(self, esc=None, keep=False):
+        self.esc, self.keep = esc, keep
+
+    def __enter__(self):
+        from fgdp_tpu_torch.align import chain
+        from fgdp_tpu_torch.ops import kernels
+        self.chain, self.kernels = chain, kernels
+        self.inner = inner = chain.chain_flt_kernel
+        self.shapes, self.seen = [], []
+
+        def spy(st, weight, dref, opt, C):
+            out = inner(st, weight, dref, opt, C)
+            self.shapes.append(tuple(weight.shape))
+            if self.keep:
+                rung = self.esc.rung if self.esc is not None else None
+                args = ({f: st[f] for f in chain.FLT_FIELDS}, weight, dref,
+                        opt, C)
+                self.seen.append((rung, args, out))
+            return out
+
+        chain.chain_flt_kernel = spy
+        kernels.TIMED["chain_flt"] = []
+        return self
+
+    def __exit__(self, *exc):
+        self.chain.chain_flt_kernel = self.inner
+        self.launch_ms = [s.elapsed_time(e) for s, e in
+                          self.kernels.TIMED.pop("chain_flt", [])]
+
+    def report(self, tag, wall):
+        """Log the launches, their summed kernel ms and share of `wall`
+        seconds, by (B, C); returns the summed ms."""
+        total = sum(self.launch_ms)
+        log(f"[{tag}] chain_flt (D5) on the path: {len(self.launch_ms)} "
+            f"launches, {total:.3f} ms of kernel time (CUDA events its C "
+            f"entry point records around each launch) = "
+            f"{100 * total / (1e3 * wall):.4f}% of the wall")
+        hist = {}
+        for shape, ms in zip(self.shapes, self.launch_ms):
+            h = hist.setdefault(shape, [0, 0.0])
+            h[0] += 1
+            h[1] += ms
+        for (B, C), (k, ms) in sorted(hist.items()):
+            log(f"[{tag}] chain_flt B={B} C={C}: {k} launches, {ms:.3f} ms")
+        return total
+
+    def hold(self, tag):
+        """Every kept launch's flags exactly equal to the plain version's
+        on its inputs; logs the launches held by rung."""
+        from collections import Counter
+        import torch
+        held = Counter()
+        for rung, args, got in self.seen:
+            if not torch.equal(got, self.chain.chain_flt_plain(*args)):
+                raise AssertionError(f"chain_flt launch of rung {rung} "
+                                     "differs from its plain version")
+            held["primary" if rung is None else
+                 f"{rung[0]} level {rung[1]}"] += 1
+        log(f"[{tag}] every chain_flt launch equals its plain version on "
+            f"its inputs: " + ", ".join(f"{r}: {n}" for r, n in
+                                        sorted(held.items())))
+        return held
+
+
+class FirstChainCall:
+    """The arguments of the first chain_seeds call of a run (the first
+    primary batch's: rungs follow their batch)."""
+
+    def __enter__(self):
+        from fgdp_tpu_torch.align import chain
+        self.chain = chain
+        self.inner = inner = chain.chain_seeds
+        self.args = None
+
+        def spy(*a, **kw):
+            if self.args is None:
+                self.args = (a, kw)
+            return inner(*a, **kw)
+
+        chain.chain_seeds = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.chain.chain_seeds = self.inner
+
+
+def chain_split(args, kernel):
+    """chain_seeds on one batch piece by piece, each ended by a sync:
+    frac_rep, expand_seeds, P2 (its kernel), the weight and D5 (its
+    kernel with kernel=True, else its torch ops): ({piece: ms}, D5's
+    arguments, kept)."""
+    import torch
+    from fgdp_tpu_torch.align import chain
+
+    (dfm, dref, smems, lens, opt), kw = args[0][:5], args[1]
+    P, C = kw["max_seedpos"], kw["max_chains"]
+    ms = {}
+
+    def lap(piece, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[piece] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    lap("frac_rep", lambda: chain.frac_rep(smems, lens, opt))
+    ex = lap("expand_seeds", lambda: chain.expand_seeds(
+        dfm, dref, smems, opt, P, jobs_cap=kw.get("jobs_cap", 0)))
+    st = lap("P2", lambda: chain.chain_loop(*ex[:6], dref.l_pac, C, opt.w,
+                                            opt.max_chain_gap))
+    weight = lap("weight", lambda: chain.chain_weight(st))
+    flt = chain.chain_flt_kernel if kernel else chain.chain_flt_plain
+    kept = lap("D5", lambda: flt(st, weight, dref, opt, C))
+    ms["total"] = sum(ms.values())
+    return ms, (st, weight, dref, opt, C), kept
+
+
+def chain_split_report(tag, args):
+    """The chain split on the kernel and on D5's torch ops in turns
+    (torch ops, kernel, kernel, torch ops; the second of each reported,
+    the first in brackets), the two D5s' flags equal; logs the batch's
+    n_f. Returns (the torch ops' D5 ms, D5's arguments)."""
+    import torch
+    sp0, _, _ = chain_split(args, kernel=False)
+    sk0, _, _ = chain_split(args, kernel=True)
+    sk, fa, got = chain_split(args, kernel=True)
+    sp, _, want = chain_split(args, kernel=False)
+    if not torch.equal(got, want):
+        raise AssertionError("the chain split's D5 flags differ from the "
+                             "torch ops'")
+    st, weight, dref, opt, C = fa
+    nf = flt_stats(st, weight, opt, C)
+    B, P = weight.shape[0], args[1]["max_seedpos"]
+    log(f"[{tag}] chain split of one primary batch ({B} reads, P {P}, C "
+        f"{C}; synced ms, first pass in brackets): D5 kernel "
+        + ", ".join(f"{k} {v:.2f} [{sk0[k]:.2f}]" for k, v in sk.items())
+        + "; D5 torch ops "
+        + ", ".join(f"{k} {v:.2f} [{sp0[k]:.2f}]" for k, v in sp.items())
+        + f"; D5 torch ops / kernel {sp['D5'] / max(sk['D5'], 1e-9):.1f}x")
+    log(f"[{tag}] the batch's filter ranks n_f: max {nf['max']}, mean "
+        f"{nf['mean']:.3f}, {nf['multi']} reads with two or more")
+    return sp["D5"], fa
+
+
 # the seeding kernels' wrappers, by kernel: (module, kernel function,
 # plain function) under fgdp_tpu_torch.ops, and the JAX loop each replaces
 SEED_FNS = {
@@ -1355,7 +1644,8 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     kernels.reset_launches()
     kernels.TIMED["sw_extend"] = []
     try:
-        with ChainLaunches() as p2, SeedLaunches(esc, keep=True) as sl:
+        with ChainLaunches() as p2, SeedLaunches(esc, keep=True) as sl, \
+                FltLaunches(esc, keep=True) as d5, FirstChainCall() as cc:
             t0 = time.time()
             n = stream_mem(aligner, cli.read_batches([fq], batch),
                            lines.append)
@@ -1385,6 +1675,7 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
         f"launches, {sw_ms:.3f} ms of kernel time (CUDA events around each "
         f"launch) = {100 * sw_ms / (1e3 * wall):.3f}% of mem's wall")
     p2.report("scale", wall)
+    d5.report("scale", wall)
     sl.report("scale", wall)
     log(f"[scale] peak device memory {peak / 2**30:.2f} GiB")
 
@@ -1420,6 +1711,14 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     codes, lens, active = sl.primary[3:6]
     rows = seed_rows(aligner, codes, lens, active)
     del sl
+    flt_held = d5.hold("scale")
+    if flt_held["primary"] <= 0 or len(d5.seen) != len(d5.launch_ms):
+        raise AssertionError(f"chain_flt launches held: {dict(flt_held)}")
+    plain_ms, fa = chain_split_report("scale", cc.args)
+    rows["chain_flt"] = flt_row("scale", *fa, plain_ms=plain_ms)
+    widest = max(d5.seen, key=lambda x: x[1][4])
+    flt_row(f"scale rung {widest[0]}", *widest[1])
+    del d5
     return launches, dict(prefix=prefix, fq=fq, reads=reads, lines=lines,
                           aligner=aligner, seed_rows=rows)
 
@@ -2243,7 +2542,8 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
     kernels.TIMED["kswv"] = []
     kswv.kswv_forward_kernel = spy
     try:
-        with SeedLaunches() as sl:
+        with SeedLaunches() as sl, FltLaunches() as d5, \
+                FirstChainCall() as cc:
             torch.cuda.synchronize()
             t0 = time.time()
             n = stream_mem(aligner, cli.read_batches(fqs, batch),
@@ -2273,6 +2573,8 @@ def phase_pe_scale(dev, rates, tmp, ctx, n_pairs, batch):
         f"time (CUDA events its C entry point records around each launch)"
         f" = {100 * k_ms / (1e3 * wall):.4f}% of the wall")
     sl.report("pe_scale", wall)
+    d5.report("pe_scale", wall)
+    chain_split_report("pe_scale", cc.args)
     row = pe_kswv_launches(seen, rates)
     del seen
     log(f"[pe_scale] properly paired {proper:.4f}; MAPQ>=20 ends {conf}, "
@@ -2903,6 +3205,9 @@ def main(argv=None):
                       "fgdp_tpu/ops/sw_pallas.py:34"),
         "chain_loop": ("cuda", "fgdp_tpu_torch/csrc/chain_loop.cu",
                        "fgdp_tpu/ops/chain_pallas.py:40"),
+        "chain_flt": ("cuda", "fgdp_tpu_torch/csrc/chain_flt.cu",
+                      "fgdp_tpu/align/chain.py:342 _chain_flt (D5, "
+                      "lax.while_loop :416)"),
         "pairhmm": ("cuda", "fgdp_tpu_torch/csrc/pairhmm.cu",
                     "fgdp_tpu/ops/pairhmm_pallas.py:34"),
         "kswv": ("cuda", "fgdp_tpu_torch/csrc/kswv.cu",

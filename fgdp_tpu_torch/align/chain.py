@@ -10,7 +10,10 @@ and the slot rows in shared memory, or the whole table in shared memory
 above 256 chain slots), and
 `chain_loop_plain` beside it is the same loop as torch ops over all
 reads, transcribed from the JAX package's jnp loop: the CPU tests run
-it, and the card's smoke run holds the kernel against it.
+it, and the card's smoke run holds the kernel against it. The chain
+filter runs in csrc/chain_flt.cu on the card (it replaces the JAX
+package's lax.while_loop _chain_flt; one warp a read), beside it
+`chain_flt_plain`, the same filter as torch ops.
 
 Known deviation (as in the JAX package): chains with equal weight keep
 insertion order in the filter sort (stable); the reference's introsort
@@ -303,14 +306,11 @@ def chain_loop_plain(qbeg, rbeg, slen, rid, valid, overflow, l_pac: int,
     return out
 
 
-def chain_seeds(dfm: DeviceFMIndex, dref: DeviceReference, smems: SeedBatch,
-                lens, opt: AlignConfig, max_seedpos: int,
-                max_chains: int, jobs_cap: int = 0) -> ChainBatch:
+def frac_rep(smems: SeedBatch, lens, opt: AlignConfig):
+    """float32[B]: the share of each read covered by the union of its
+    high-occurrence smem spans (m-ascending order)."""
     B, S = smems.m.shape
     dev = smems.m.device
-    P, C = max_seedpos, max_chains
-
-    # frac_rep (union of high-occurrence smem spans, m-ascending order)
     slot_valid = torch.arange(S, device=dev)[None, :] < smems.count[:, None]
     qual = slot_valid & (smems.s > opt.max_occ)
     se = torch.where(qual, smems.n + 1, 0)
@@ -321,32 +321,86 @@ def chain_seeds(dfm: DeviceFMIndex, dref: DeviceReference, smems: SeedBatch,
     contrib = torch.where(qual, (se - torch.maximum(sb, prev_e)).clamp(min=0),
                           0)
     l_rep = contrib.sum(dim=1)
-    frac_rep = l_rep.to(torch.float32) / \
-        lens.clamp(min=1).to(torch.float32)
+    return l_rep.to(torch.float32) / lens.clamp(min=1).to(torch.float32)
 
+
+def chain_weight(st):
+    """int32[B, C]: each chain's weight, min(wq, wr) capped below 2^30."""
+    return torch.clamp(torch.minimum(st["wq"], st["wr"]), max=(1 << 30) - 1)
+
+
+def chain_seeds(dfm: DeviceFMIndex, dref: DeviceReference, smems: SeedBatch,
+                lens, opt: AlignConfig, max_seedpos: int,
+                max_chains: int, jobs_cap: int = 0) -> ChainBatch:
+    P, C = max_seedpos, max_chains
+    frac = frac_rep(smems, lens, opt)
     qbeg, rbeg, slen, rid, valid, overflow, flat = expand_seeds(
         dfm, dref, smems, opt, P, jobs_cap=jobs_cap)
 
     st = chain_loop(qbeg, rbeg, slen, rid, valid, overflow, dref.l_pac, C,
                     opt.w, opt.max_chain_gap)
-    weight = torch.clamp(torch.minimum(st["wq"], st["wr"]),
-                         max=(1 << 30) - 1)
-    kept = _chain_flt(st, weight, dref, opt, C)
+    weight = chain_weight(st)
+    kept = chain_flt(st, weight, dref, opt, C)
     return ChainBatch(
         seed_qbeg=qbeg, seed_rbeg=rbeg, seed_len=slen,
         seed_chain=st["chain_of"],
         pos=st["pos"], rid=st["crid"], first_q=st["fq"], first_r=st["fr"],
         last_q=st["lq"], last_r=st["lr"], last_len=st["ll"],
         n_seeds=st["ns"], weight=weight, kept=kept, n_chains=st["n"],
-        frac_rep=frac_rep, overflow=st["ovf"] | smems.overflow,
+        frac_rep=frac, overflow=st["ovf"] | smems.overflow,
         ovf_seed=smems.overflow,
         fread=flat["read"], fslot=flat["slot"], fqbeg=flat["qbeg"],
         frbeg=flat["rbeg"], fslen=flat["slen"], fon=flat["on"],
     )
 
 
-def _chain_flt(st, weight, dref: DeviceReference, opt: AlignConfig, C: int):
-    """mem_chain_flt transcription over the fixed chain table.
+# the chain-table fields the filter reads besides the weight
+FLT_FIELDS = ("n", "pos", "crid", "fq", "lq", "ll")
+
+
+def chain_flt(st, weight, dref: DeviceReference, opt: AlignConfig, C: int):
+    """mem_chain_flt over every read's chain table (`st`: chain_loop's
+    output, `weight`: chain_weight(st)). Returns the kept flags
+    (0/1/2/3) int32[B, C] in insertion order. The kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if weight.is_cuda:
+        return chain_flt_kernel(st, weight, dref, opt, C)
+    return chain_flt_plain(st, weight, dref, opt, C)
+
+
+def chain_flt_kernel(st, weight, dref: DeviceReference, opt: AlignConfig,
+                     C: int):
+    """Launch csrc/chain_flt.cu on CUDA tensors: one launch, no host
+    sync. weight must lie in [0, 2^30) (chain_weight's). Raises when the
+    launch fails, and without launching for a C whose table one block's
+    shared memory cannot hold (40 bytes a chain slot: C above
+    fgdp_chain_flt_max_c(), 5,811 on an H100)."""
+    B = weight.shape[0]
+    dev = weight.device
+    cols = [kernels.tensor_arg(st[f], dev, _I32, f"chain_flt {f}")
+            for f in FLT_FIELDS] + \
+        [kernels.tensor_arg(weight, dev, _I32, "chain_flt weight")]
+    if cols[0].shape != (B,) or any(a.shape != (B, C) for a in cols[1:]):
+        raise ValueError(f"chain_flt kernel: n must be [{B}] and the table "
+                         f"columns [{B}, {C}]")
+    is_alt = kernels.tensor_arg(dref.is_alt, dev, torch.bool,
+                                "chain_flt is_alt")
+    lib = kernels.load("chain_flt")
+    kept = torch.empty((B, C), dtype=_I32, device=dev)
+    kernels.launch("chain_flt", lib.fgdp_chain_flt,
+                   *(a.data_ptr() for a in cols), is_alt.data_ptr(),
+                   dref.n_contigs, B, C, opt.min_chain_weight,
+                   opt.min_seed_len, opt.max_chain_gap, opt.max_chain_extend,
+                   opt.mask_level, opt.drop_ratio, kept.data_ptr(),
+                   device=dev)
+    return kept
+
+
+def chain_flt_plain(st, weight, dref: DeviceReference, opt: AlignConfig,
+                    C: int):
+    """The plain version: mem_chain_flt transcription over the fixed
+    chain table, a step of torch ops per filter rank up to the batch's
+    largest rank count (the JAX package's _chain_flt, transcribed).
 
     Operates in weight-sorted order via an index permutation; returns
     kept flags (0/1/2/3) aligned to the insertion-order chain table."""

@@ -32,6 +32,15 @@ FGDP_HD int fgdp_ctz(unsigned x) {
 #endif
 }
 
+// set bits of x
+FGDP_HD int fgdp_popc(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
 // read-only gathers of the seeding kernels' tables: through the
 // read-only data cache on the card
 FGDP_HD int fgdp_ld(const int* p) {

@@ -1,9 +1,10 @@
 // Host twin of the CUDA kernels, for the CPU tests only: g++ builds the
 // kernels' own per-job (sw_extend.cuh, kswv.cuh), per-read
-// (chain_loop.cuh, seed_strategy.cuh), per-pair (pairhmm.cuh) and
-// per-element (vpu_ceiling.cuh) logic into a plain C library, run with
-// one serial lane (the register paths of the chain loop, kswv and
-// PairHMM with 32 lanes in lockstep), the FM rank primitives (fm.cuh)
+// (chain_loop.cuh, chain_flt.cuh, seed_strategy.cuh), per-pair
+// (pairhmm.cuh) and per-element (vpu_ceiling.cuh) logic into a plain C
+// library, run with one serial lane (the register paths of the chain
+// loop, kswv and PairHMM, and the chain filter, with 32 lanes in
+// lockstep), the FM rank primitives (fm.cuh)
 // one interval at a time, and the seeding wave machines (smem_lcp.cuh,
 // k2_lcp.cuh) with every lane in one thread and the counts taken on the
 // host step by step, so the logic can be
@@ -70,6 +71,22 @@ template <class C, class A, class B,
 Lane32<float> hmm_sel(const C& c, const A& a, const B& b) {
   Lane32<float> r;
   for (int i = 0; i < 32; ++i) r.v[i] = at(c, i) ? at(a, i) : at(b, i);
+  return r;
+}
+
+// the chain filter's float32 compares (chain_flt.cuh) lane by lane
+template <class A, class B, class = if_lane<A, B>>
+Lane32<bool> flt_ge_mul(const A& d, const B& x, float m) {
+  Lane32<bool> r;
+  for (int i = 0; i < 32; ++i)
+    r.v[i] = (float)at(d, i) >= (float)at(x, i) * m;
+  return r;
+}
+template <class A, class B, class = if_lane<A, B>>
+Lane32<bool> flt_lt_mul(const A& a, const B& x, float m) {
+  Lane32<bool> r;
+  for (int i = 0; i < 32; ++i)
+    r.v[i] = (float)at(a, i) < (float)at(x, i) * m;
   return r;
 }
 
@@ -140,6 +157,7 @@ struct HostWarp {
   }
 };
 
+#include "chain_flt.cuh"
 #include "chain_loop.cuh"
 #include "fm.cuh"
 #include "k2_lcp.cuh"
@@ -289,6 +307,28 @@ extern "C" int fgdp_chain_loop_wide_host(const int* qbeg, const int* rbeg,
   std::vector<int> st((size_t)CH_NFIELDS * C);
   SerialLanes L;
   for (int b = 0; b < B; ++b) chain_read_wide(a, b, st.data(), L);
+  return 0;
+}
+
+// The chain filter with 32 lockstep lanes (fgdp_chain_flt's arguments
+// but the events and stream); returns 1 for C < 1.
+extern "C" int fgdp_chain_flt_host(const int* n, const int* pos,
+                                   const int* crid, const int* fq,
+                                   const int* lq, const int* ll,
+                                   const int* weight,
+                                   const unsigned char* is_alt,
+                                   int n_contigs, int B, int C,
+                                   int min_chain_weight, int min_seed_len,
+                                   int max_chain_gap, int max_chain_extend,
+                                   float mask_level, float drop_ratio,
+                                   int* kept) {
+  if (C < 1) return 1;
+  const FltArgs a{n, pos, crid, fq, lq, ll, weight, is_alt, n_contigs, B,
+                  C, min_chain_weight, min_seed_len, max_chain_gap,
+                  max_chain_extend, mask_level, drop_ratio, kept};
+  std::vector<int> sm((size_t)FLT_NARR * C);
+  HostWarp L;
+  for (int b = 0; b < B; ++b) chain_flt_read(a, b, sm.data(), L);
   return 0;
 }
 

@@ -1,7 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, kswv.cu,
-pairhmm.cu, the seeding kernels smem_lcp.cu, k2_lcp.cu and
+Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, chain_flt.cu,
+kswv.cu, pairhmm.cu, the seeding kernels smem_lcp.cu, k2_lcp.cu and
 seed_strategy.cu, and the probes' vpu_ceiling.cu and gather_rows.cu) is
 compiled by nvcc for sm_90a into its own shared library with a plain C
 interface under build/fgdp_tpu_torch/ at the repository root, and bound
@@ -14,7 +14,7 @@ cudaGetLastError(); `check` raises when that is not 0.
 build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
 or 32 lanes in lockstep for the register paths of the chain loop, kswv
-and PairHMM; the seeding wave machines with every lane in one thread and
+and PairHMM and for the chain filter; the seeding wave machines with every lane in one thread and
 their counts taken step by step), which the CPU tests hold against the
 plain PyTorch versions. The port never runs it.
 """
@@ -34,13 +34,15 @@ import torch
 from ..io.native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-KERNELS = ("chain_loop", "gather_rows", "k2_lcp", "kswv", "pairhmm",
-           "seed_strategy", "smem_lcp", "sw_extend", "vpu_ceiling")
+KERNELS = ("chain_flt", "chain_loop", "gather_rows", "k2_lcp", "kswv",
+           "pairhmm", "seed_strategy", "smem_lcp", "sw_extend",
+           "vpu_ceiling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 # the FM-index as the seeding kernels take it (ops/fm.py's DeviceFMIndex):
 # occ, nblocks, counts, c2, sa, sa_len and its four int scalars
 _FM = [_P, _LL, _P, _P, _P, _LL] + [_I] * 4
@@ -52,6 +54,9 @@ _SIGS = {
     "fgdp_chain_loop_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "fgdp_chain_loop_wide_host": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "fgdp_chain_reg_max_c": [],
+    "fgdp_chain_flt": [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P] + [_P] * 3,
+    "fgdp_chain_flt_host": [_P] * 8 + [_I] * 7 + [_F] * 2 + [_P],
+    "fgdp_chain_flt_max_c": [],
     "fgdp_kswv": [_P] * 4 + [_I] * 9 + [_P] * 6 + [_P] * 3,
     "fgdp_kswv_host": [_P] * 4 + [_I] * 9 + [_P] * 4,
     "fgdp_kswv_wide_host": [_P] * 4 + [_I] * 9 + [_P] * 4,
@@ -87,9 +92,9 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA event pairs (start, end) around each launch of a kernel, recorded
 # only while a caller has put a list under its name (the smoke run's
 # scale phases sum them into the kernel's time on the main path). The C
-# entry points of SW, the chain loop, kswv, PairHMM and the seeding
-# kernels record the pair themselves, right around the launch, so no host
-# time falls between the two events.
+# entry points of SW, the chain loop, the chain filter, kswv, PairHMM and
+# the seeding kernels record the pair themselves, right around the
+# launch, so no host time falls between the two events.
 TIMED: dict = {}
 
 

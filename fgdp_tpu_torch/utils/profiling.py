@@ -37,6 +37,15 @@ class Profiler:
             self.acc[name] += time.perf_counter() - t0
             self.hits[name] += 1
 
+    def reset(self):
+        self.acc.clear()
+        self.hits.clear()
+        self.counts.clear()
+
+    def add(self, name, seconds):
+        self.acc[name] += seconds
+        self.hits[name] += 1
+
     def count(self, name, n=1):
         self.counts[name] += n
 

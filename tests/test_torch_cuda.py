@@ -12,10 +12,12 @@ run it there without the conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 It also holds the seeded inputs that test_torch_sw.py,
-test_torch_chain.py, test_torch_kswv.py, test_torch_pairhmm.py and
-test_torch_sortdup.py share with it."""
+test_torch_chain.py, test_torch_chain_flt.py, test_torch_kswv.py,
+test_torch_pairhmm.py and test_torch_sortdup.py share with it."""
 
+import dataclasses
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -166,6 +168,58 @@ def chain_edge_seeds(seed, B, P, l_pac):
         rid[4] = (rbeg[4] >= l_pac).astype(np.int32)
         valid[4] = True
     return qbeg, rbeg, slen, rid, valid, ovf
+
+
+# the chain filter's tables: a few contigs, the second one alt
+N_CONTIGS = 3
+
+
+def flt_tables(seed, B, C, n_contigs=N_CONTIGS, spans=None, weights=None):
+    """Chain tables as chain_loop leaves them, plus the weight: n
+    int32[B], the rest int32[B, C]. Rows 0-3 are the edges: no chain
+    (n_f 0), all C chains under min_chain_weight 30 (n_f 0 there), one
+    chain at or above it (n_f 1), all C chains at 40 or more (n_f C).
+    Query spans start in [0, 40) and weights and pos come from a few
+    values each, so overlaps, equal weights and equal pos are common;
+    `spans` / `weights` replace the span lengths' and weights' value
+    sets. crid runs over [-1, n_contigs + 1] (the filter clamps it)."""
+    rng = np.random.default_rng(seed)
+    spans = np.asarray(spans if spans is not None else [12, 25, 40, 60, 90])
+    weights = np.asarray(weights if weights is not None
+                         else [20, 30, 31, 45, 60, 61, 90])
+    n = rng.integers(0, C + 1, B)
+    fq = rng.integers(0, 40, (B, C))
+    ln = rng.choice(spans, (B, C))
+    ll = rng.integers(15, 30, (B, C))
+    ll = np.minimum(ll, ln)
+    lq = fq + ln - ll
+    pos = rng.choice([100, 250, 400, 4000, 9000], (B, C)) + \
+        rng.integers(0, 3, (B, C))
+    w = rng.choice(weights, (B, C))
+    crid = rng.integers(-1, n_contigs + 2, (B, C))
+    crid[rng.random((B, C)) < 0.7] = 0
+    if B > 3:
+        n[0] = 0
+        n[1] = C
+        w[1] = rng.integers(0, 30, C)
+        n[2] = max(C // 2, 1)
+        w[2, :n[2]] = rng.integers(0, 30, n[2])
+        w[2, rng.integers(0, n[2])] = 30
+        n[3] = C
+        w[3] = rng.choice(weights[weights >= 40], C)
+    # slots past n: garbage no version may read
+    junk = np.arange(C)[None, :] >= n[:, None]
+    for a, lo, hi in ((fq, -50, 50), (lq, -50, 50), (ll, 0, 9),
+                      (pos, -5, 5), (w, 0, 2**30 - 1), (crid, -9, 9)):
+        a[junk] = rng.integers(lo, hi, int(junk.sum()))
+    tbl = dict(n=n, pos=pos, crid=crid, fq=fq, lq=lq, ll=ll, weight=w)
+    return {k: np.ascontiguousarray(v, np.int32) for k, v in tbl.items()}
+
+
+def alt_table(n_contigs=N_CONTIGS):
+    alt = np.zeros(n_contigs, bool)
+    alt[1] = True
+    return alt
 
 
 def hmm_cases(seed, n, R, H, cq=10, n_frac=0.0, hopeless=0.0):
@@ -737,6 +791,98 @@ def test_chain_kernel_times_each_launch_when_asked(dev):
         kernels.TIMED.pop("chain_loop", None)
     torch.cuda.synchronize()
     assert len(pairs) == 1 and pairs[0][0].elapsed_time(pairs[0][1]) > 0
+
+
+def _flt_on_card_equals_plain(dev, tbl, C, opt, is_alt=None):
+    """The chain filter kernel on the table `tbl` equals the plain
+    version, exactly, in one launch."""
+    is_alt = alt_table() if is_alt is None else is_alt
+    st = {f: torch.as_tensor(tbl[f], device=dev) for f in chain.FLT_FIELDS}
+    weight = torch.as_tensor(tbl["weight"], device=dev)
+    dref = SimpleNamespace(is_alt=torch.as_tensor(is_alt, device=dev),
+                           n_contigs=len(is_alt))
+    n0 = kernels.LAUNCHES["chain_flt"]
+    got = chain.chain_flt(st, weight, dref, opt, C)
+    assert kernels.LAUNCHES["chain_flt"] == n0 + 1
+    want = chain.chain_flt_plain(st, weight, dref, opt, C)
+    assert torch.equal(got, want)
+    return got
+
+
+# chain counts at the warp's 32-rank passes, the ladder's widest (256)
+# and repeat_rich's (384); options as tests/test_torch_chain_flt.py's
+CHAIN_FLT_EDGE_CS = (1, 31, 32, 33, 64, 256, 384)
+CHAIN_FLT_OPTS = {
+    "mcw30": dict(min_chain_weight=30),
+    "mce2": dict(max_chain_extend=2, min_chain_weight=31,
+                 max_chain_gap=50),
+    "f32": dict(mask_level=0.3, drop_ratio=0.6, min_seed_len=5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opts", sorted(CHAIN_FLT_OPTS))
+@pytest.mark.parametrize("C", CHAIN_FLT_EDGE_CS)
+def test_chain_flt_kernel_at_edges(dev, C, opts):
+    opt = dataclasses.replace(OPT, **CHAIN_FLT_OPTS[opts])
+    _flt_on_card_equals_plain(dev, flt_tables(C, 40, C), C, opt)
+
+
+# (B, C) of the ladder's launches: the primary batch and the widest
+# bucket of each level, with the default BatchShapes and repeat_rich's
+CHAIN_FLT_LADDER = ((4096, 64), (2048, 128), (512, 256), (4096, 96),
+                    (2048, 192), (512, 384))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", CHAIN_FLT_LADDER)
+def test_chain_flt_kernel_at_ladder_shapes(dev, B, C):
+    got = _flt_on_card_equals_plain(dev, flt_tables(B + C, B, C), C, OPT)
+    assert {0, 1, 2, 3} <= set(got.unique().tolist())
+
+
+@pytest.mark.cuda
+def test_chain_flt_kernel_on_chain_loop_output(dev):
+    """P2's own table at the bench shape, as chain_seeds hands it on."""
+    cols = [torch.as_tensor(a, device=dev)
+            for a in synth_seeds(21, 4096, 256, 5000)]
+    st = chain.chain_loop(*cols, 5000, 64, OPT.w, OPT.max_chain_gap)
+    tbl = {f: st[f].cpu().numpy() for f in chain.FLT_FIELDS}
+    tbl["weight"] = chain.chain_weight(st).cpu().numpy()
+    _flt_on_card_equals_plain(dev, tbl, 64, OPT, np.zeros(2, bool))
+
+
+@pytest.mark.cuda
+def test_chain_flt_kernel_times_each_launch_when_asked(dev):
+    kernels.TIMED["chain_flt"] = []
+    try:
+        _flt_on_card_equals_plain(dev, flt_tables(3, 256, 64), 64, OPT)
+        pairs = kernels.TIMED["chain_flt"]
+    finally:
+        kernels.TIMED.pop("chain_flt", None)
+    torch.cuda.synchronize()
+    assert len(pairs) == 1 and pairs[0][0].elapsed_time(pairs[0][1]) > 0
+
+
+@pytest.mark.cuda
+def test_chain_flt_kernel_refuses_c_above_its_widest(dev):
+    lim = kernels.load("chain_flt").fgdp_chain_flt_max_c()
+    assert lim >= 384
+    C = lim + 1
+    st = {f: torch.zeros((2, C), dtype=torch.int32, device=dev)
+          for f in chain.FLT_FIELDS}
+    st["n"] = torch.zeros(2, dtype=torch.int32, device=dev)
+    dref = SimpleNamespace(is_alt=torch.zeros(1, dtype=torch.bool,
+                                              device=dev), n_contigs=1)
+    n0 = kernels.LAUNCHES["chain_flt"]
+    with pytest.raises(RuntimeError, match="chain_flt launch failed"):
+        chain.chain_flt(st, st["pos"], dref, OPT, C)
+    assert kernels.LAUNCHES["chain_flt"] == n0
+    # the widest C itself launches
+    st = {f: a[:, :lim] if a.dim() == 2 else a for f, a in st.items()}
+    kept = chain.chain_flt(st, st["pos"], dref, OPT, lim)
+    assert kernels.LAUNCHES["chain_flt"] == n0 + 1
+    assert not bool(kept.any())
 
 
 @pytest.mark.cuda
