@@ -10,7 +10,9 @@ there is none or when the port is not beside it. Phases, each of which
 fails loudly:
   1. card     name and power limit (nvidia-smi), torch and CUDA versions,
               the SM count and the maximum SM clock the bounds use
-  2. build    the hand-written kernels from fgdp_tpu_torch/csrc (nvcc)
+  2. build    the hand-written kernels from fgdp_tpu_torch/csrc (nvcc),
+              ptxas' registers and stack frames; K3's kernel must keep
+              no stack frame (cuobjdump -res-usage on its library)
   3. kernels  each kernel against its plain PyTorch version on the card
               at the main paths' shapes (seeded inputs; SW, chain loop
               and PairHMM exactly equal; PairHMM at the bench shape, a
@@ -21,7 +23,8 @@ fails loudly:
               path, with its path, ms per step of the longest read and
               its serial bound; kswv exactly equal on rescue jobs made as
               pe_scale makes them, at the register path's lane edges, on
-              the wide path and on a mostly empty batch; the chain filter
+              the wide path and on a mostly empty batch, and its clocks a
+              warp step from one warp an SM to all; the chain filter
               D5 exactly equal at C 1-384 under three option sets, at the
               ladder's (B, C) and on P2's bench output, with its ms, plain
               ms, bytes and serial bounds and ptxas' registers and stack
@@ -48,7 +51,10 @@ fails loudly:
               sync), the kernels against the torch-op loops in turns;
               each seeding kernel's ms on that batch, its bytes bound
               (the table bytes its lanes gather, counted by the kernel)
-              and its serial bound; every chain filter (D5) launch held
+              and its serial bounds (a read alone on the kernel, and the
+              design-independent one: the dependent-gather probe on the
+              index, with a grid barrier a step for K1 and K2); every
+              chain filter (D5) launch held
               exactly against its plain version, its launches and
               summed ms by (B, C); the chain split of the first primary
               batch (frac_rep, expand_seeds, P2, the weight and D5, each
@@ -66,9 +72,11 @@ fails loudly:
               (R, H) bucket, the share of planted sites called, and the
               first 5 sites' calls equal to the port's CPU run
   9. probes   the S1 issue-rate probe (FP32 FMA chains and their INT32
-              twin) and the S2 row-gather probe: each kernel against its
-              plain version (FP32 within rtol 1e-5, INT32 and the gather
-              exactly), then the probes' sweeps; their measured rates
+              twin), the S2 row-gather probe and the dependent-gather
+              probe (two 96-byte occ rows a hop): each kernel against its
+              plain version (FP32 within rtol 1e-5, INT32, the gather and
+              the chase exactly), then the probes' sweeps and the chase's
+              latency, cold and warm; their measured rates
               replace the lane counts in the bounds where they are higher
               (runs first, before the kernels phase)
  10. sormadup_scale BASELINE config 3's class: a coordinate-shuffled SAM
@@ -414,14 +422,26 @@ def phase_card():
                       mhz=lanes["mhz"])
 
 
+# kernels whose every function must keep no stack frame
+NO_STACK = ("seed_strategy",)
+
+
 def phase_build():
     from fgdp_tpu_torch.ops import kernels
+    from fgdp_tpu_torch.probes import sass
     secs = kernels.build()
     log(f"[build] kernels built in {secs:.1f} s (all nvcc in parallel)")
     for name, rec in kernels.build_log.items():
         for ln in rec["log"].splitlines():
-            if "registers" in ln or "spill" in ln:
+            if "registers" in ln or "spill" in ln or "Function prop" in ln:
                 log(f"[build] {name}: {ln.strip()}")
+    for name in NO_STACK:
+        # read from the built library, so a library built by an earlier
+        # run is checked too
+        frames = sass.stack_frames(name)
+        log(f"[build] {name}: stack frames (cuobjdump -res-usage) {frames}")
+        if not frames or max(frames.values()) != 0:
+            raise AssertionError(f"{name} keeps a stack frame: {frames}")
     for name in kernels.KERNELS:
         kernels.load(name)
 
@@ -946,7 +966,8 @@ def kswv_row(tag, args, rates):
     """The kernels line's kswv numbers on one launch's card tensors:
     held exactly against its plain version, kernel ms from the events the
     C entry point records around each launch, the bound for this launch's
-    cells and bytes, and its row loop's SASS."""
+    cells and bytes, and its step loop's SASS (the register path's
+    wavefront runs min(tlen, TP) + 31 warp steps a job)."""
     from fgdp_tpu_torch.ops import kswv
     from fgdp_tpu_torch.probes import KSWV_OPS_PER_CELL
 
@@ -957,27 +978,56 @@ def kswv_row(tag, args, rates):
     J, QP = q.shape
     TP = t.shape[1]
     cells = int(np.dot(qlen.astype(np.int64), tlen))
-    rows_run = int(np.minimum(tlen, TP).sum())
+    rows = np.minimum(tlen, TP)
+    steps = int((rows + 31 * (rows > 0)).sum())
     nbytes = 4 * (q.size + t.size + 2 * J) + 4 * (2 * J + J * QP + J * TP)
     b_ms, b_by = bound(nbytes, cells * KSWV_OPS_PER_CELL, rates["int32"])
     K = -(-QP // 32)
     hits = int((got[0] >= opt.min_seed_len * opt.a).sum())
     log(f"[{tag}] kswv J={J} QP={QP} TP={TP} (K={K}), "
         f"{int((qlen > 0).sum())} jobs, {path} path: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.1f} ms, cells {cells}, warp rows {rows_run}, "
-        f"{cells / ms / 1e6:.2f} GCUPS, bound {b_ms:.5f} ms ({b_by}: "
-        f"{KSWV_OPS_PER_CELL} int32 operations a cell); {hits} jobs score "
-        f">= {opt.min_seed_len * opt.a}; equal: True")
+        f"plain {plain_ms:.1f} ms, cells {cells}, warp steps {steps} "
+        f"({int(rows.sum())} rows), {cells / ms / 1e6:.2f} GCUPS, bound "
+        f"{b_ms:.5f} ms ({b_by}: {KSWV_OPS_PER_CELL} int32 operations a "
+        f"cell), kernel / bound {ms / b_ms:.2f}; {hits} jobs score >= "
+        f"{opt.min_seed_len * opt.a}; equal: True")
     n = sass_row_instructions("kswv", K)
     if n:
         log(f"[{tag}] kswv: {KSWV_OPS_PER_CELL} counted int32 operations a "
             f"cell = {KSWV_OPS_PER_CELL / 32:.2f} warp instructions a cell "
-            f"at 32 lanes; the row loop issues {n * rows_run / cells:.2f} a "
-            f"cell ({rows_run} warp rows of {32 * K} lane columns, "
-            f"{cells / rows_run:.1f} cells each); issuing them alone takes "
-            f"{1e3 * n * rows_run / rates['issue']:.4f} ms")
+            f"at 32 lanes; the step loop issues {n * steps / cells:.2f} a "
+            f"cell ({steps} warp steps of {32 * K} lane columns, "
+            f"{cells / steps:.1f} cells each); issuing them alone takes "
+            f"{1e3 * n * steps / rates['issue']:.4f} ms")
+    kswv_sweep(tag, args, pen)
     return dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def kswv_sweep(tag, args, pen):
+    """kswv on the launch's first n jobs, n from one warp an SM to all:
+    the clocks a warp step takes as the warps an SM holds grow (flat:
+    each step's dependent chain bounds it; growing with the warps: a
+    shared pipe or the issue slots do)."""
+    import torch
+    from fgdp_tpu_torch.ops import kswv
+    from fgdp_tpu_torch.probes import card
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = card()[1]["mhz"]
+    J = args[0].shape[0]
+    out = []
+    for n in sorted({sms, 2 * sms, 4 * sms, 8 * sms, J}):
+        if n > J:
+            continue
+        sub = [a[:n].contiguous() for a in args]
+        ms = timed_ms("kswv", lambda: kswv.kswv_forward_kernel(*sub, **pen))
+        rows = np.minimum(sub[3].cpu().numpy(), sub[2].shape[1])
+        steps = (rows + 31 * (rows > 0)).max()
+        out.append(f"{n} jobs ({n / sms:.1f} warps an SM) {ms:.4f} ms = "
+                   f"{1e3 * ms * mhz / steps:.0f} clocks a step of the "
+                   f"longest job")
+    log(f"[{tag}] kswv by jobs in the launch: " + "; ".join(out))
 
 
 def kernels_kswv(dev, rates):
@@ -1475,11 +1525,16 @@ def seed_rows(al, codes, lens, active):
     and seed_strategy on that batch: kernel ms (mean of 10 launches, CUDA
     events), plain ms (the split's), the bytes bound (table bytes the
     lanes gather, counted by the kernel, plus inputs read and outputs
-    written once) and the serial bound: K1's and K2's grid steps times
-    one grid step's latency on an otherwise idle card (K1 on one read
-    alone: its kernel ms over its grid steps), K3's longest read's steps
-    times one step's latency of a read alone."""
+    written once) and two serial bounds: the lone read's (K1's and K2's
+    grid steps times one grid step of K1 on one read alone, K3's longest
+    read's steps times a step of K3 on one read alone: both move with the
+    kernel under test) and the design-independent one (probes.chase on
+    this index's occ rows: K3's most gather steps of a read times the
+    dependent gather's latency, K1's and K2's grid steps times the
+    latency plus one grid barrier at their launch's grid)."""
     import torch
+    from fgdp_tpu_torch.ops import smem_k2lcp, smem_lcp
+    from fgdp_tpu_torch.probes import chase
     sp0, _ = seeding_split(al, codes, lens, active, kernel=False)
     sk0, _ = seeding_split(al, codes, lens, active, kernel=True)
     sk, got = seeding_split(al, codes, lens, active, kernel=True)
@@ -1527,23 +1582,50 @@ def seed_rows(al, codes, lens, active):
         step_us[name] = 1e3 * lone_ms / max(steps, 1)
         log(f"[scale] {name} on read {r0} alone: {lone_ms:.4f} ms for "
             f"{steps} {'grid ' if name == 'smem_lcp' else ''}steps = "
-            f"{step_us[name]:.3f} us a step")
+            f"{step_us[name]:.3f} us a step (the kernel under test)")
+    # the design-independent step: the dependent gather of two of this
+    # index's occ rows (probes.chase, one chain alone, warm in L2), and
+    # for K1 and K2 one grid barrier at the grid their launch takes
+    occ = al.dfm.occ_fused
+    cold, lat = chase.latency_us(occ)
+    grids = {"smem_lcp": smem_lcp.launch_grid(B, occ.device),
+             "k2_lcp": smem_k2lcp.launch_grid(job[0].numel(), occ.device)}
+    bar = {k: chase.barrier_us(occ, *g) for k, g in grids.items()}
+    log(f"[scale] gather_chase on the scale index ({occ.shape[0]} rows): "
+        f"{lat:.4f} us a hop warm (cold {cold:.4f}); a grid barrier "
+        + ", ".join(f"{bar[k]:.4f} us at {grids[k][0]} x {grids[k][1]} "
+                    f"({k})" for k in grids))
     for name, (a, kw) in full.items():
         out, work = seed_work(name, *a, **kw)
         ms = timed_ms(name, lambda: _seed_fn(name, 1)(*a, **kw))
         serial = 1e-3 * (work[3] * step_us["seed_strategy"]
                          if name == "seed_strategy"
                          else work[1] * step_us["smem_lcp"])
+        # the new bound: K3's read with the most gathers (work[1]) times
+        # the gather's latency; K1's and K2's grid steps times the
+        # latency and a barrier
+        if name == "seed_strategy":
+            indep = 1e-3 * work[1] * lat
+            how = (f"{work[1]} gather steps x {lat:.4f} us; the longest "
+                   f"read's {work[3]} steps x the latency "
+                   f"{1e-3 * work[3] * lat:.4f} ms")
+        else:
+            indep = 1e-3 * work[1] * (lat + bar[name])
+            how = (f"{work[1]} grid steps x ({lat:.4f} + {bar[name]:.4f} "
+                   f"us)")
         rows_out = out.count.numel()
         nbytes = work[0] + in_bytes + 16 * int(out.count.sum()) + \
             5 * rows_out + (24 * job[0].numel() if name == "k2_lcp" else 0)
         b_ms, b_by = bound(nbytes, 0, 1.0)
-        log(f"[scale] {name} on the batch: kernel {ms:.3f} ms, plain "
+        log(f"[scale] {name} on the batch: kernel {ms:.4f} ms, plain "
             f"{plain[name]:.1f} ms; {work[0]} table bytes gathered, "
-            f"{work[2]} lane steps, {work[1]} grid steps, longest lane's "
-            f"own steps {work[3]}; bound {b_ms:.5f} ms ({b_by}, {nbytes} "
-            f"bytes); serial bound {serial:.4f} ms; kernel / serial bound "
-            f"{ms / max(serial, 1e-9):.2f}")
+            f"{work[2]} lane steps, {work[1]} "
+            f"{'gather steps of one read' if name == 'seed_strategy' else 'grid steps'}"
+            f", longest lane's own steps {work[3]}; bound {b_ms:.5f} ms "
+            f"({b_by}, {nbytes} bytes); lone-read serial bound {serial:.4f} "
+            f"ms (kernel / it {ms / max(serial, 1e-9):.2f}); "
+            f"design-independent serial bound {indep:.4f} ms ({how}); "
+            f"kernel / it {ms / max(indep, 1e-9):.2f}")
         rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain[name],
                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return rows
@@ -2167,11 +2249,13 @@ def phase_mutect_scale(dev, genome_bp):
 
 
 def phase_probes(dev, lanes):
-    """S1 and S2: each kernel against its plain version, then the
-    probes' own sweeps with the launch counts set to 0 just before them.
+    """S1, S2 and the dependent-gather probe: each kernel against its
+    plain version, then the probes' own sweeps (and the chase's lone
+    chain, cold and warm) with the launch counts set to 0 just before
+    them.
     Returns the kernel rows and the rates the bounds divide by."""
     from fgdp_tpu_torch.ops import kernels
-    from fgdp_tpu_torch.probes import cuda_ms, gather, wall_ms
+    from fgdp_tpu_torch.probes import chase, cuda_ms, gather, wall_ms
     from fgdp_tpu_torch.probes import vpu_ceiling as vc
 
     err = vc.check(dev)
@@ -2183,12 +2267,22 @@ def phase_probes(dev, lanes):
     log(f"[probes] gather_rows kernel equals tbl[idx] on the "
         f"{gather.NBLOCKS}x{gather.W} int32 table at N {gather.NS} and D "
         f"{gather.KERNEL_DEPTHS}, and over a whole chain")
+    occ = chase.table(dev)
+    chase.check(occ)
+    log(f"[probes] gather_chase kernel equals the plain chase on a random "
+        f"{chase.NBLOCKS}x{chase.ROW} occ-shaped table, alone and under a "
+        f"grid barrier a hop")
 
     kernels.reset_launches()
     vrows, best = vc.measure(dev, log=log)
     grows = gather.measure(tbl, log=log)
+    cold, warm = chase.latency_us(occ)
+    log(f"[probes] gather_chase: one chain alone, {chase.HOPS} hops of two "
+        f"96-byte rows: cold {cold:.4f} us a hop, warm (L2) {warm:.4f} us "
+        f"a hop")
     launches = {k: kernels.LAUNCHES[k] for k in ("vpu_ceiling",
-                                                 "gather_rows")}
+                                                 "gather_rows",
+                                                 "gather_chase")}
     rates = dict(lanes)
     for kind in ("fp32", "int32"):
         rates[kind] = max(lanes[kind], best[kind])
@@ -2225,6 +2319,21 @@ def phase_probes(dev, lanes):
         f"{b_ms:.4f} ms ({b_by})")
     rows["gather_rows"] = dict(max_abs_err=0, ms=ms, plain_ms=plain,
                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+    # the chase probe's row: one warm chain alone of HOPS hops; its bytes
+    # (two rows a hop) are its bound, its latency what it measures
+    ms = 1e-3 * warm * chase.HOPS
+    plain, _ = wall_ms(lambda: chase.chase_plain(occ, 1, chase.HOPS, 12345))
+    b_ms, b_by = bound(chase.HOPS * 2 * 96, 0, rates["int32"])
+    log(f"[probes] gather_chase row: 1 chain x {chase.HOPS} hops: kernel "
+        f"{ms:.4f} ms, plain {plain:.1f} ms, bound {b_ms:.6f} ms ({b_by}); "
+        f"the hops are serial, so the kernel is its latency")
+    rows["gather_chase"] = dict(
+        max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        bound_note="a latency probe: one dependent chain, so its time is "
+                   "the latency it measures and the bytes bound says "
+                   "nothing of it")
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"probe kernel {k} never launched")
@@ -3225,6 +3334,9 @@ def main(argv=None):
                         "scripts/bench_vpu_ceiling.py:44"),
         "gather_rows": ("cuda", "fgdp_tpu_torch/csrc/gather_rows.cu",
                         "scripts/bench_gather_pallas.py:26"),
+        "gather_chase": ("cuda", "fgdp_tpu_torch/csrc/gather_chase.cu",
+                         "none: a probe of the card (the seeding kernels' "
+                         "serial bounds), no TPU counterpart"),
     }
     out = []
     for name, (route, src, repl) in meta.items():
@@ -3235,6 +3347,8 @@ def main(argv=None):
                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"],
                         library_ms=r.get("library_ms")))
+        if "bound_note" in r:
+            out[-1]["bound_note"] = r["bound_note"]
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": out}))
     print(card)

@@ -1,6 +1,8 @@
 // FM-index rank primitives (D1) as device functions, shared by the
 // seeding kernels (smem_lcp.cu, k2_lcp.cu, seed_strategy.cu) and built on
-// the host by host_twin.cc for the CPU tests.
+// the host by host_twin.cc for the CPU tests. K1 and K2 take them one
+// interval a thread; K3 takes forward_extend2's group form, one interval
+// a 16-lane group (fm_forward_extend2_group).
 //
 // A transcription of the port's ops/fm.py (itself the JAX package's
 // fgdp_tpu/ops/fm.py :113-322) for ONE interval: _fetch, _fetch_pair,
@@ -187,6 +189,88 @@ FGDP_HD void fm_forward_extend2(const FmView& fm, int k, int l, int s,
   const int cbc = fm_clamp3(cb);
   int before = 0;
   for (int t = 0; t < cbc; ++t) before += d[3 - t];
+  k2 = k1 + (s1 - sum) + before;
+}
+
+// The group form of forward_extend2 (K3's kernel, seed_strategy.cuh):
+// a group of FM_GROUP = 16 lanes computes the 16 ranks one step needs,
+// one a lane, from the rows at l (lanes 0-7) and l + s (lanes 8-15):
+// lane g's rank is occ1[c] (g & 4 clear) or occ2c[c] (g & 4 set), c =
+// g & 3, as fm_fetch(row, cf) gives them. Each lane reads its row's
+// packed words (one 16-byte load, the same address across the row's 8
+// lanes) and its one count (a 4-byte load): the group's loads of a step
+// touch the two rows only. The character selects are register selects.
+#define FM_GROUP 16
+
+FGDP_HD int fm_group_rank(const FmView& fm, int i, int g, int cf) {
+  unsigned pm[2];
+  const int* row = fm_row(fm, i, pm);
+  const int c = g & 3;
+  const bool pair = (g & 4) != 0;
+  int w4[4];
+  fgdp_ld4(row + 20, w4);
+  const int cnt = fgdp_ld(row + (pair ? 4 + 4 * c + cf : c));
+  const int ca = pair ? cf : c;
+  const unsigned b0 = pair ? fm_sel((unsigned)w4[2], c) : 0xFFFFFFFFu;
+  const unsigned b1 = pair ? fm_sel((unsigned)w4[3], c) : 0xFFFFFFFFu;
+  int x = cnt + fm_popc(fm_sel((unsigned)w4[0], ca) & b0 & pm[0]) +
+          fm_popc(fm_sel((unsigned)w4[1], ca) & b1 & pm[1]);
+  const int cc = c * 4 + cf;
+  if (pair ? (cc == fm.cc_r0 && i > fm.sentinel_row)
+           : (c == 0 && i > fm.sentinel_row))
+    x -= 1;
+  if (pair && cc == fm.cc_r1 && i > fm.r1_row) x -= 1;
+  return x;
+}
+
+// lane g's rank of a forward_extend2 step on (l, s) with character ca
+// (a functor: the group policy runs it once a lane)
+struct FmGroupRank {
+  const FmView& fm;
+  int l, s, cf;
+  FGDP_HD int operator()(int g) const {
+    return fm_group_rank(fm, g < 8 ? l : l + s, g & 7, cf);
+  }
+};
+
+// v[c] with c = 0..3 a run-time character: register selects
+FGDP_HD int fm_pick4(const int v[4], int c) {
+  return c == 0 ? v[0] : (c == 1 ? v[1] : (c == 2 ? v[2] : v[3]));
+}
+
+// fm_forward_extend2 by a group: `grp` runs FmGroupRank on its lanes
+// (grp.each) and reads lane t's value (grp.get); every lane ends with
+// the same outputs.
+template <class Group>
+FGDP_HD void fm_forward_extend2_group(const FmView& fm, const Group& grp,
+                                      int k, int l, int s, int ca, int cb,
+                                      int& k1, int& l1, int& s1, int& k2,
+                                      int& l2, int& s2) {
+  const int ca3 = 3 - fm_clamp3(ca), cb3 = 3 - fm_clamp3(cb);
+  const auto v = grp.each(FmGroupRank{fm, l, s, ca3});
+  int lo1[4], lo2[4], sz[4], d[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    lo1[t] = grp.get(v, t);
+    lo2[t] = grp.get(v, 4 + t);
+    sz[t] = grp.get(v, 8 + t) - lo1[t];
+    d[t] = grp.get(v, 12 + t) - lo2[t];
+  }
+  // backward extension by ca3 on the reverse-complement side
+  // (fm_bwd_from_ranks with lo.i = l, hi.i = l + s)
+  const int sent_in =
+      (l <= fm.sentinel_row && fm.sentinel_row < l + s) ? 1 : 0;
+  l1 = fgdp_ld(fm.counts + ca3) + fm_pick4(lo1, ca3);
+  k1 = k + sent_in + (ca3 < 3 ? sz[3] : 0) + (ca3 < 2 ? sz[2] : 0) +
+       (ca3 < 1 ? sz[1] : 0);
+  s1 = fm_pick4(sz, ca3);
+  // the 2-step prepend (3-cb)(3-ca); the forward sub-partition of
+  // [k1, k1 + s1): d indexed by 3 - character, '$' first
+  l2 = fgdp_ld(fm.c2 + cb3 * 4 + ca3) + fm_pick4(lo2, cb3);
+  s2 = fm_pick4(d, cb3);
+  const int sum = d[0] + d[1] + d[2] + d[3];
+  const int before = (cb3 < 3 ? d[3] : 0) + (cb3 < 2 ? d[2] : 0) +
+                     (cb3 < 1 ? d[1] : 0);
   k2 = k1 + (s1 - sum) + before;
 }
 

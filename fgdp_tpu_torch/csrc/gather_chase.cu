@@ -1,0 +1,86 @@
+// Dependent-gather latency probe for Hopper (sm_90a): the serial bounds
+// of the seeding kernels (K1, K2, K3), independent of their designs. No
+// TPU kernel corresponds to it.
+//
+// A chain runs `hops` dependent hops. A hop gathers two whole 96-byte
+// checkpoint rows of an FM occ table (int32[nblocks, 24]: rows p and q,
+// six 16-byte loads each, all twelve in flight together, as a seeding
+// step reads the rows at l and l + s) and takes the next pair from what
+// it read: x = the int32 sum (wrapping) of the 48 ints, p' = ((x & 0x7fffffff)
+// 40503 + hop) % nblocks, q' = min(p' + ((x >> 8) & 3), nblocks - 1).
+// One thread a chain; the chain's last x and p are its output, which the
+// plain version (probes/chase.py, torch ops) gives alike. With `sync` the
+// launch is cooperative and every thread of the grid passes one grid
+// barrier (cooperative_groups' grid sync, as the K1 and K2 kernels'
+// steps do) after each hop; with chains = 0 it times the barriers alone.
+//
+// What bounds it: by design, the latency of one hop (a dependent gather
+// of two rows from L2 or device memory) times the hops; the bytes (192 a
+// hop) are nothing at the card's memory rate.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+__global__ void gather_chase_kernel(const int4* __restrict__ occ,
+                                    long long nblocks, int chains, int hops,
+                                    int sync, long long p0, int* out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  long long p = (p0 + 7919LL * t) % nblocks;
+  long long q = p + 1 < nblocks ? p + 1 : p;
+  int x = 0;
+  for (int h = 0; h < hops; ++h) {
+    if (t < chains) {
+      int4 a[6], b[6];
+#pragma unroll
+      for (int w = 0; w < 6; ++w) {
+        a[w] = __ldcg(occ + p * 6 + w);
+        b[w] = __ldcg(occ + q * 6 + w);
+      }
+      unsigned s = 0;
+#pragma unroll
+      for (int w = 0; w < 6; ++w)
+        s += (unsigned)a[w].x + (unsigned)a[w].y + (unsigned)a[w].z +
+             (unsigned)a[w].w + (unsigned)b[w].x + (unsigned)b[w].y +
+             (unsigned)b[w].z + (unsigned)b[w].w;
+      x = (int)s;
+      p = ((long long)(s & 0x7fffffffu) * 40503 + h) % nblocks;
+      q = p + ((s >> 8) & 3);
+      if (q > nblocks - 1) q = nblocks - 1;
+    }
+    if (sync) cooperative_groups::this_grid().sync();
+  }
+  if (t < chains) {
+    out[2 * t] = x;
+    out[2 * t + 1] = (int)p;
+  }
+}
+
+// occ int32[nblocks, 24] (16-byte aligned); out int32[chains, 2]; chains
+// <= blocks x threads. sync != 0 launches cooperatively (all blocks
+// resident, else cudaErrorCooperativeLaunchTooLarge). ev_start/ev_end
+// are cudaEvent_t or null, recorded on `stream` just before and just
+// after the launch. Returns cudaGetLastError() or the launch's error, or
+// cudaErrorInvalidValue for a bad shape.
+extern "C" int fgdp_gather_chase(const int* occ, long long nblocks,
+                                 int chains, int hops, int blocks,
+                                 int threads, int sync, long long p0,
+                                 int* out, void* ev_start, void* ev_end,
+                                 void* stream) {
+  if (nblocks < 1 || chains < 0 || hops < 0 || blocks < 1 || threads < 1 ||
+      (long long)chains > (long long)blocks * threads || p0 < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int4* o = reinterpret_cast<const int4*>(occ);
+  int rc = 0;
+  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  if (sync) {
+    void* args[] = {&o, &nblocks, &chains, &hops, &sync, &p0, &out};
+    rc = (int)cudaLaunchCooperativeKernel((void*)gather_chase_kernel, blocks,
+                                          threads, args, 0, s);
+  } else {
+    gather_chase_kernel<<<blocks, threads, 0, s>>>(o, nblocks, chains, hops,
+                                                   sync, p0, out);
+  }
+  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  if (rc) return rc;
+  return (int)cudaGetLastError();
+}

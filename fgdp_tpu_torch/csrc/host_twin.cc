@@ -4,14 +4,15 @@
 // (pairhmm.cuh) and per-element (vpu_ceiling.cuh) logic into a plain C
 // library, run with one serial lane (the register paths of the chain
 // loop, kswv and PairHMM, and the chain filter, with 32 lanes in
-// lockstep), the FM rank primitives (fm.cuh)
-// one interval at a time, and the seeding wave machines (smem_lcp.cuh,
+// lockstep; K3 with its group's 16 lanes in lockstep), the FM rank
+// primitives (fm.cuh) one interval at a time, and the seeding wave machines (smem_lcp.cuh,
 // k2_lcp.cuh) with every lane in one thread and the counts taken on the
 // host step by step, so the logic can be
 // held against the plain PyTorch versions where there is no nvcc. It
 // builds with -ffp-contract=off, so that no multiply and add fuse into
 // one rounding, as on the card. The port's CPU path never calls it; it
 // runs the plain PyTorch versions.
+#include <array>
 #include <cstddef>
 #include <type_traits>
 #include <vector>
@@ -90,6 +91,49 @@ Lane32<bool> flt_lt_mul(const A& a, const B& x, float m) {
   return r;
 }
 
+// kswv.cuh's DPX max-adds and byte-permute score lane by lane
+template <class A, class B, class C,
+          class = std::enable_if_t<is_lane<A>::value || is_lane<B>::value ||
+                                   is_lane<C>::value>>
+Lane32<int> kswv_addmax(const A& a, const B& b, const C& c) {
+  Lane32<int> r;
+  for (int i = 0; i < 32; ++i) {
+    const int x = at(a, i) + at(b, i), y = at(c, i);
+    r.v[i] = x > y ? x : y;
+  }
+  return r;
+}
+template <class A, class B, class C,
+          class = std::enable_if_t<is_lane<A>::value || is_lane<B>::value ||
+                                   is_lane<C>::value>>
+Lane32<int> kswv_addmax0(const A& a, const B& b, const C& c) {
+  Lane32<int> r = kswv_addmax(a, b, c);
+  for (int i = 0; i < 32; ++i) r.v[i] = r.v[i] > 0 ? r.v[i] : 0;
+  return r;
+}
+template <class A, class B, class C,
+          class = std::enable_if_t<is_lane<A>::value || is_lane<B>::value ||
+                                   is_lane<C>::value>>
+Lane32<int> kswv_max3(const A& a, const B& b, const C& c) {
+  Lane32<int> r;
+  for (int i = 0; i < 32; ++i) {
+    const int x = at(a, i) > at(b, i) ? at(a, i) : at(b, i);
+    r.v[i] = x > at(c, i) ? x : at(c, i);
+  }
+  return r;
+}
+template <class A, class B, class = if_lane<A, B>>
+Lane32<int> kswv_score(const A& prof, const B& sel) {
+  Lane32<int> r;
+  for (int i = 0; i < 32; ++i) {
+    const int c = at(sel, i) & 7;
+    r.v[i] = c < 4 ? (int)(signed char)(unsigned char)(
+                         (unsigned)at(prof, i) >> (8 * c))
+                   : -1;
+  }
+  return r;
+}
+
 struct HostWarp {
   using F = Lane32<float>;
   using I = Lane32<int>;
@@ -138,6 +182,7 @@ struct HostWarp {
     return r;
   }
   int shfl(const I& v, int src) const { return v.v[src]; }
+  bool any(bool v) const { return v; }
   // v of lane - d (a lane below d keeps its own v)
   I shfl_up(const I& v, int d) const {
     I r;
@@ -213,14 +258,18 @@ static void kswv_regs_host(const int* q, const int* t, const int* qlen,
                            const KswvParams& p, int* best, int* te,
                            int* best_row, int* row_max) {
   HostWarp L;
+  std::vector<int> ring((size_t)KSWV_RING * K * 32);
   for (int j = 0; j < J; ++j)
     kswv_job_regs<K>(q + (long long)j * QP, t + (long long)j * TP, QP, TP,
-                     qlen[j], tlen[j], p, L, best_row + (long long)j * QP,
+                     qlen[j], tlen[j], p, L, ring.data(),
+                     best_row + (long long)j * QP,
                      row_max + (long long)j * TP, best[j], te[j]);
 }
 
 // The kswv register path with 32 lockstep lanes, K = ceil(QP / 32) as on
-// the card; returns 1 for QP above fgdp_kswv_reg_max_qp().
+// the card, the ring a host array; returns 1 where the C entry point
+// takes the wide path (QP above fgdp_kswv_reg_max_qp(), or a or -b
+// outside a signed byte).
 extern "C" int fgdp_kswv_host(const int* q, const int* t, const int* qlen,
                               const int* tlen, int J, int QP, int TP, int a,
                               int b, int o_del, int e_del, int o_ins,
@@ -228,6 +277,7 @@ extern "C" int fgdp_kswv_host(const int* q, const int* t, const int* qlen,
                               int* row_max) {
   static_assert(KSWV_MAX_K == 8, "instantiate every K up to KSWV_MAX_K");
   const KswvParams p{a, b, o_del, e_del, o_ins, e_ins};
+  if (!kswv_bytes_ok(p)) return 1;
 #define KSWV_HOST(k)                                                   \
   case k:                                                              \
     kswv_regs_host<k>(q, t, qlen, tlen, J, QP, TP, p, best, te, best_row, \
@@ -512,15 +562,69 @@ extern "C" int fgdp_k2_lcp_host(
   return 0;
 }
 
-// K3 (fgdp_seed_strategy's arguments but the events and stream)
+// K3's group of FM_GROUP lanes in lockstep: a lane value is an array of
+// 16, each() runs a functor once a lane, get() reads one lane; the one
+// thread is the lead lane and stages the codes.
+struct HostGroup16 {
+  using I = std::array<int, FM_GROUP>;
+  template <class F>
+  I each(const F& f) const {
+    I r;
+    for (int g = 0; g < FM_GROUP; ++g) r[g] = f(g);
+    return r;
+  }
+  int get(const I& v, int src) const { return v[src]; }
+  bool lead() const { return true; }
+  void stage(signed char* buf, const int* row, int L) const {
+    for (int u = 0; u < L; ++u) buf[u] = k3_code8(row[u]);
+  }
+};
+
+// The group ranks and forward_extend2 on n intervals: out int32[n,
+// FM_GROUP_COLS] holds the 16 lanes' ranks (fm_group_rank), fm_fetch's
+// ranks of the same rows (occ1 and occ2c at l, then at l + s), the
+// group's forward_extend2 (k1, l1, s1, k2, l2, s2) and fm_forward_extend2's.
+#define FM_GROUP_COLS 44
+extern "C" int fgdp_fm_group_host(FM_HOST_ARGS, int n, const int* k,
+                                  const int* l, const int* s, const int* ca,
+                                  const int* cb, int* out) {
+  const FmView fm = FM_VIEW;
+  const HostGroup16 grp;
+  for (int i = 0; i < n; ++i) {
+    int* o = out + (long long)i * FM_GROUP_COLS;
+    const int cf = 3 - fm_clamp3(ca[i]);
+    const auto v = grp.each(FmGroupRank{fm, l[i], s[i], cf});
+    for (int g = 0; g < FM_GROUP; ++g) o[g] = v[g];
+    FmRanks lo, hi;
+    fm_fetch(fm, l[i], cf, lo);
+    fm_fetch(fm, l[i] + s[i], cf, hi);
+    for (int t = 0; t < 4; ++t) {
+      o[16 + t] = lo.occ1[t];
+      o[20 + t] = lo.occ2c[t];
+      o[24 + t] = hi.occ1[t];
+      o[28 + t] = hi.occ2c[t];
+    }
+    fm_forward_extend2_group(fm, grp, k[i], l[i], s[i], ca[i], cb[i], o[32],
+                             o[33], o[34], o[35], o[36], o[37]);
+    fm_forward_extend2(fm, k[i], l[i], s[i], ca[i], cb[i], o[38], o[39],
+                       o[40], o[41], o[42], o[43]);
+  }
+  return 0;
+}
+
+// K3 (fgdp_seed_strategy's arguments but the events and stream, and
+// `staged`: 1 reads the codes from the group's buffer, 0 where they lie)
 extern "C" int fgdp_seed_strategy_host(
     FM_HOST_ARGS, const int* codes, const int* lens,
     const unsigned char* active, int B, int L, int max_intv, int msl, int S,
     int* out_m, int* out_n, int* out_k, int* out_s, int* count,
-    unsigned char* overflow) {
+    unsigned char* overflow, long long* work, int staged) {
   const K3Args A{FM_VIEW, codes, lens, active, B, L, max_intv, msl,
                  SeedRows{out_m, out_n, out_k, out_s, S}, count, overflow,
-                 nullptr};
-  for (int rd = 0; rd < B; ++rd) k3_read(A, rd);
+                 work};
+  const HostGroup16 grp;
+  std::vector<signed char> buf((size_t)L + 1);
+  for (int rd = 0; rd < B; ++rd)
+    k3_read(A, rd, grp, staged ? buf.data() : nullptr);
   return 0;
 }

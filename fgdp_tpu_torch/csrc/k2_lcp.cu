@@ -52,15 +52,22 @@ static int launch(K2Args& A, int max_rounds, int* sets, int* blk,
                                           K2_THREADS, args, 0, s);
 }
 
-static int lanes_per_thread(int NK) {
-  int blocks = 0;
-  if (coop_blocks(k2_lcp_kernel<1>, K2_THREADS, NK, 1, &blocks) == 0)
+static int lanes_per_thread(int NK, int* blocks) {
+  if (coop_blocks(k2_lcp_kernel<1>, K2_THREADS, NK, 1, blocks) == 0)
     return 1;
-  if (coop_blocks(k2_lcp_kernel<4>, K2_THREADS, NK, 4, &blocks) == 0)
+  if (coop_blocks(k2_lcp_kernel<4>, K2_THREADS, NK, 4, blocks) == 0)
     return 4;
-  if (coop_blocks(k2_lcp_kernel<16>, K2_THREADS, NK, 16, &blocks) == 0)
+  if (coop_blocks(k2_lcp_kernel<16>, K2_THREADS, NK, 16, blocks) == 0)
     return 16;
   return 0;
+}
+
+// The grid a launch of NK jobs takes: grid[0] blocks of grid[1]
+// threads. Returns the lanes a thread holds, or 0 when they cannot all
+// be resident (grid[0] is then the blocks at 16 lanes a thread).
+extern "C" int fgdp_k2_lcp_grid(int NK, int* grid) {
+  grid[1] = K2_THREADS;
+  return lanes_per_thread(NK > 0 ? NK : 1, grid);
 }
 
 // the most blocks a launch of NK jobs uses (the size of `blk`)
@@ -94,7 +101,8 @@ extern "C" int fgdp_k2_lcp(
            SeedRows{out_m, out_n, out_k, out_s, sj_cap}, count, overflow,
            work};
   cudaStream_t s = (cudaStream_t)stream;
-  const int R = NK > 0 ? lanes_per_thread(NK) : 1;
+  int blocks = 0;
+  const int R = NK > 0 ? lanes_per_thread(NK, &blocks) : 1;
   if (R == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
   int rc = 0;

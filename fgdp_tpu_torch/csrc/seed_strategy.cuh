@@ -11,13 +11,23 @@
 // interval below max_intv at least min_seed_len long ends it with a
 // seed when the interval is not empty.
 //
-// The lane runs its own steps until x >= len or the machine's step cap
+// The read runs its own steps until x >= len or the machine's step cap
 // 2 L L. The torch-op loop runs every lane in lockstep and tests every 8
 // steps whether any lane is live; a lane that is not live (x >= len, or
 // not active) changes nothing in a step and never becomes live again, so
 // the lockstep loop's extra steps leave it as it is, and a loop cut at
-// the cap has run every lane exactly the cap's steps: the per-lane loop
+// the cap has run every lane exactly the cap's steps: the per-read loop
 // gives the same seeds, counts and flags.
+//
+// A read is a group of FM_GROUP = 16 lanes (the policy `grp`: a half
+// warp on the card, 16 lockstep lanes in the host twin). The read's
+// state (x, j, k, l, s, m, n, started, the seed count and flag) is the
+// same in every lane of the group, so the group takes one branch; an
+// extension's ranks are one a lane (fm_forward_extend2_group). The read's
+// codes are read once, clamped to -1..4 (every test of the loop is
+// "< 4" or clamps to 0..3, so the clamp changes nothing), into the
+// group's byte buffer (shared memory on the card) or, for reads too long
+// for it, read where they lie (K3Codes).
 #pragma once
 
 #include "fm.cuh"
@@ -35,7 +45,48 @@ struct K3Args {
   long long* work;              // int64[4] (seed_waves.cuh) or null
 };
 
-FGDP_HD void k3_read(const K3Args& A, int rd) {
+// codes[rd, j], j outside [0, L) -> 4: from the group's staged bytes
+// (buf non-null) or from the codes tensor itself
+struct K3Codes {
+  const signed char* buf;
+  const int* row;
+  int L;
+  FGDP_HD int at(int j) const {
+    if (j < 0 || j >= L) return 4;
+    return buf != nullptr ? (int)buf[j] : fgdp_ld(row + j);
+  }
+};
+
+FGDP_HD signed char k3_code8(int c) {
+  return (signed char)fgdp_min(fgdp_max(c, -1), 4);
+}
+
+// seed_append by a group: every lane counts, the lead lane writes
+template <class Group>
+FGDP_HD void k3_emit(const K3Args& A, const Group& grp, int rd, int& cnt,
+                     bool& ovf, int m, int n, int k, int s) {
+  if (cnt < A.out.S) {
+    if (grp.lead()) {
+      const long long at = (long long)rd * A.out.S + cnt;
+      A.out.m[at] = m;
+      A.out.n[at] = n;
+      A.out.k[at] = k;
+      A.out.s[at] = s;
+    }
+    ++cnt;
+  } else {
+    ovf = true;
+  }
+}
+
+// One read's steps by its group; `buf` is the group's L-byte buffer or
+// null (read the codes where they lie).
+template <class Group>
+FGDP_HD void k3_read(const K3Args& A, int rd, const Group& grp,
+                     signed char* buf) {
+  const int* row = A.codes + (long long)rd * A.L;
+  if (buf != nullptr) grp.stage(buf, row, A.L);
+  const K3Codes q{buf, row, A.L};
   const int len = fgdp_ld(A.lens + rd);
   const bool on = A.active[rd] != 0;
   const long long step_cap = 2LL * A.L * A.L;
@@ -47,7 +98,7 @@ FGDP_HD void k3_read(const K3Args& A, int rd) {
     const bool extl = started;
     if (!started) {
       // anchor restart
-      const int a0 = seed_read_at(A.codes, A.L, rd, x);
+      const int a0 = q.at(x);
       if (a0 < 4) {
         fm_init_interval(A.fm, a0, k, l, s);
         m = n = x;
@@ -59,8 +110,8 @@ FGDP_HD void k3_read(const K3Args& A, int rd) {
     }
     if (!extl) continue;
     // extension: two characters from one pair of rows
-    const int a = seed_read_at(A.codes, A.L, rd, j);
-    const int b = seed_read_at(A.codes, A.L, rd, j + 1);
+    const int a = q.at(j);
+    const int b = q.at(j + 1);
     // char 0 at j
     if (j >= len) {
       x = j;
@@ -73,14 +124,15 @@ FGDP_HD void k3_read(const K3Args& A, int rd) {
       continue;
     }
     int k1, l1, s1, k2, l2, s2;
-    fm_forward_extend2(A.fm, k, l, s, a, b, k1, l1, s1, k2, l2, s2);
+    fm_forward_extend2_group(A.fm, grp, k, l, s, a, b, k1, l1, s1, k2, l2,
+                             s2);
     gb += 192;   // two whole rows
     k = k1;
     l = l1;
     s = s1;
     n = j;
     if (s1 < A.max_intv && j - m + 1 >= A.msl) {
-      if (s1 > 0) seed_append(A.out, rd, cnt, ovf, m, n, k, s);
+      if (s1 > 0) k3_emit(A, grp, rd, cnt, ovf, m, n, k, s);
       x = j + 1;
       started = false;
       continue;
@@ -102,18 +154,21 @@ FGDP_HD void k3_read(const K3Args& A, int rd) {
     s = s2;
     n = j;
     if (s2 < A.max_intv && j - m + 1 >= A.msl) {
-      if (s2 > 0) seed_append(A.out, rd, cnt, ovf, m, n, k, s);
+      if (s2 > 0) k3_emit(A, grp, rd, cnt, ovf, m, n, k, s);
       x = j + 1;
       started = false;
       continue;
     }
     j += 1;
   }
-  A.count[rd] = cnt;
-  A.overflow[rd] = ovf ? 1 : 0;
-  if (A.work != nullptr) {
-    seed_work_add(A.work, gb);
-    seed_work_add(A.work + 2, steps);
-    seed_work_max(A.work + 3, steps);
+  if (grp.lead()) {
+    A.count[rd] = cnt;
+    A.overflow[rd] = ovf ? 1 : 0;
+    if (A.work != nullptr) {
+      seed_work_add(A.work, gb);
+      seed_work_max(A.work + 1, gb / 192);   // the read's gather steps
+      seed_work_add(A.work + 2, steps);
+      seed_work_max(A.work + 3, steps);
+    }
   }
 }

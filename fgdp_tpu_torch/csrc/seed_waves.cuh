@@ -73,8 +73,9 @@ FGDP_HD void seed_append(const SeedRows& o, long long row, int& cnt,
 // The work counters a launch may be asked for (int64[4], null when not):
 // [0] bytes of table rows and entries gathered (occ rows, tree rows, SA
 // and ISA entries, packed text words), [1] the machine's grid steps
-// (counts taken), [2] lane steps, [3] the longest lane's own steps
-// (before the waves, for K2; a read's, for K3).
+// (counts taken; for K3, which has none, the most extension steps, each
+// a gather of two occ rows, of any read), [2] lane steps, [3] the
+// longest lane's own steps (before the waves, for K2; a read's, for K3).
 FGDP_HD void seed_work_add(long long* w, long long v) {
 #ifdef __CUDA_ARCH__
   if (v) atomicAdd(reinterpret_cast<unsigned long long*>(w),

@@ -64,15 +64,22 @@ static int launch(LcpArgs& A, int max_rounds, int* sets, int* blk,
 
 // The lanes a thread holds at a launch of B reads: 1, 4 or 16 (the
 // fewest that fit in the resident threads), or 0 when none does.
-static int lanes_per_thread(int B) {
-  int blocks = 0;
-  if (coop_blocks(smem_lcp_kernel<1>, LCP_THREADS, B, 1, &blocks) == 0)
+static int lanes_per_thread(int B, int* blocks) {
+  if (coop_blocks(smem_lcp_kernel<1>, LCP_THREADS, B, 1, blocks) == 0)
     return 1;
-  if (coop_blocks(smem_lcp_kernel<4>, LCP_THREADS, B, 4, &blocks) == 0)
+  if (coop_blocks(smem_lcp_kernel<4>, LCP_THREADS, B, 4, blocks) == 0)
     return 4;
-  if (coop_blocks(smem_lcp_kernel<16>, LCP_THREADS, B, 16, &blocks) == 0)
+  if (coop_blocks(smem_lcp_kernel<16>, LCP_THREADS, B, 16, blocks) == 0)
     return 16;
   return 0;
+}
+
+// The grid a launch of B reads takes: grid[0] blocks of grid[1]
+// threads. Returns the lanes a thread holds, or 0 when they cannot all
+// be resident (grid[0] is then the blocks at 16 lanes a thread).
+extern "C" int fgdp_smem_lcp_grid(int B, int* grid) {
+  grid[1] = LCP_THREADS;
+  return lanes_per_thread(B > 0 ? B : 1, grid);
 }
 
 // the most blocks a launch of B reads uses (the size of `blk`)
@@ -109,7 +116,8 @@ extern "C" int fgdp_smem_lcp(
             msl, SeedRows{out_m, out_n, out_k, out_s, S}, count, overflow,
             work};
   cudaStream_t s = (cudaStream_t)stream;
-  const int R = B > 0 ? lanes_per_thread(B) : 1;
+  int blocks = 0;
+  const int R = B > 0 ? lanes_per_thread(B, &blocks) : 1;
   if (R == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
   int rc = 0;

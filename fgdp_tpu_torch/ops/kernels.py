@@ -2,7 +2,8 @@
 
 Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, chain_flt.cu,
 kswv.cu, pairhmm.cu, the seeding kernels smem_lcp.cu, k2_lcp.cu and
-seed_strategy.cu, and the probes' vpu_ceiling.cu and gather_rows.cu) is
+seed_strategy.cu, and the probes' vpu_ceiling.cu, gather_rows.cu and
+gather_chase.cu) is
 compiled by nvcc for sm_90a into its own shared library with a plain C
 interface under build/fgdp_tpu_torch/ at the repository root, and bound
 with ctypes. The build happens at first use (one nvcc per source, all started
@@ -34,9 +35,9 @@ import torch
 from ..io.native import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-KERNELS = ("chain_flt", "chain_loop", "gather_rows", "k2_lcp", "kswv",
-           "pairhmm", "seed_strategy", "smem_lcp", "sw_extend",
-           "vpu_ceiling")
+KERNELS = ("chain_flt", "chain_loop", "gather_chase", "gather_rows",
+           "k2_lcp", "kswv", "pairhmm", "seed_strategy", "smem_lcp",
+           "sw_extend", "vpu_ceiling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -61,6 +62,7 @@ _SIGS = {
     "fgdp_kswv_host": [_P] * 4 + [_I] * 9 + [_P] * 4,
     "fgdp_kswv_wide_host": [_P] * 4 + [_I] * 9 + [_P] * 4,
     "fgdp_kswv_reg_max_qp": [],
+    "fgdp_kswv_wide": [_I] * 3,
     "fgdp_sw_extend_host": [_P] * 5 + [_I] * 13 + [_P] * 2,
     "fgdp_pairhmm_f32": [_P] * 6 + [_I] * 4 + [_P] * 4 + [_P],
     "fgdp_pairhmm_f32_host": [_P] * 6 + [_I] * 4 + [_P],
@@ -69,17 +71,21 @@ _SIGS = {
     "fgdp_vpu_ceiling": [_P, _P, _LL] + [_I] * 3 + [_P] * 6 + [_P],
     "fgdp_vpu_ceiling_host": [_P, _P, _LL] + [_I] * 3 + [_P] * 6,
     "fgdp_gather_rows": [_P] * 3 + [_LL] + [_I] * 2 + [_P],
+    "fgdp_gather_chase": [_P, _LL] + [_I] * 5 + [_LL] + [_P] * 4,
     "fgdp_smem_lcp": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6
     + [_P] * 3 + [_P] * 3,
     "fgdp_smem_lcp_host": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6,
     "fgdp_smem_lcp_max_blocks": [_I],
+    "fgdp_smem_lcp_grid": [_I, _P],
     "fgdp_k2_lcp": _FM + [_P] * 10 + [_I] * 8 + [_P] * 6 + [_P] * 3
     + [_P] * 3,
     "fgdp_k2_lcp_host": _FM + [_P] * 10 + [_I] * 8 + [_P] * 6,
     "fgdp_k2_lcp_max_blocks": [_I],
+    "fgdp_k2_lcp_grid": [_I, _P],
     "fgdp_seed_strategy": _FM + [_P] * 3 + [_I] * 5 + [_P] * 7 + [_P] * 3,
-    "fgdp_seed_strategy_host": _FM + [_P] * 3 + [_I] * 5 + [_P] * 6,
+    "fgdp_seed_strategy_host": _FM + [_P] * 3 + [_I] * 5 + [_P] * 7 + [_I],
     "fgdp_fm_host": _FM + [_I] + [_P] * 6,
+    "fgdp_fm_group_host": _FM + [_I] + [_P] * 6,
 }
 
 _libs: dict = {}
@@ -203,6 +209,17 @@ def work_ptr(work, dev, what: str):
             work.shape != (4,):
         raise ValueError(f"{what}: work must be int64[4] on {dev}")
     return work.data_ptr()
+
+
+def coop_grid(name: str, fn, n: int, device):
+    """(blocks, threads) of the cooperative launch that the C entry point
+    fn(n, grid) chooses for n lanes on `device`; raises when they cannot
+    all be resident."""
+    grid = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        if fn(n, ctypes.addressof(grid)) == 0:
+            raise RuntimeError(f"{name}: {n} lanes cannot all be resident")
+    return grid[0], grid[1]
 
 
 def launch(name: str, fn, *args, device):

@@ -6,8 +6,9 @@ batches (src/kswv.cpp:126, dispatched from mem_matesw
 src/bwamem_pair.cpp:150-285). The JAX package runs the forward pass as a
 jitted lax.fori_loop over the target rows (fgdp_tpu/ops/kswv.py
 _forward, D6). On the card the hand-written kernel csrc/kswv.cu runs it,
-one warp per job with the job's DP row in registers, or in global
-scratch for queries wider than 256 columns. `kswv_forward_plain` beside
+one warp per job with the job's DP row in registers (the lanes an
+anti-diagonal wavefront over the target rows), or in global scratch for
+queries wider than 256 columns or scores outside a signed byte. `kswv_forward_plain` beside
 it is the same function as a row loop of torch ops, transcribed from
 _forward: the CPU path and the tests run it, and the card's smoke run
 holds the kernel against it.
@@ -44,9 +45,10 @@ NEG = -(1 << 30)
 _I32 = torch.int32
 
 # the kernel's two paths, as its C entry point reports the one it took
-# (chosen from QP alone, before the launch): the DP row in registers, or
-# in global scratch for queries wider than the kernel library's
-# fgdp_kswv_reg_max_qp(); launches of each
+# (chosen from QP and the scores, before the launch): the DP row in
+# registers, or in global scratch for queries wider than the kernel
+# library's fgdp_kswv_reg_max_qp() or a match score or mismatch penalty
+# outside a signed byte (fgdp_kswv_wide); launches of each
 KERNEL_PATHS = ("registers", "wide")
 PATH_LAUNCHES = {p: 0 for p in KERNEL_PATHS}
 # rescue work handed to kswv_forward by ksw_align_local_batch: jobs (not
@@ -91,7 +93,7 @@ def kswv_forward_kernel(q, qlen, t, tlen, *, a, b, o_del, e_del, o_ins,
     lib = kernels.load("kswv")
     # the wide path keeps each job's H and E rows in global scratch
     scratch = torch.empty((J, 2, QP), dtype=_I32, device=dev) \
-        if QP > lib.fgdp_kswv_reg_max_qp() else None
+        if lib.fgdp_kswv_wide(QP, int(a), int(b)) else None
     timed = kernels.TIMED.get("kswv")
     path = ctypes.c_int(-1)
     with torch.cuda.device(dev):

@@ -98,6 +98,12 @@ def _merge(lanes: LaneSeeds, lane_ovf, k_read, k_on, B, max_seeds, into):
     return seeds._replace(overflow=seeds.overflow | ovf)
 
 
+def launch_grid(NK: int, device):
+    """(blocks, threads) of k2_reseed_lcp_kernel's launch of NK jobs."""
+    lib = kernels.load("k2_lcp")
+    return kernels.coop_grid("k2_lcp", lib.fgdp_k2_lcp_grid, NK, device)
+
+
 def k2_reseed_lcp_kernel(fm, tree, isa, codes, lens, k_read, job_x,
                          job_mi, job_pos, job_d0, k_on, min_seed_len: int,
                          B: int, max_seeds: int, into=None, sj_cap: int = 16,

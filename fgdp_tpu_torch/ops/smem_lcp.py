@@ -68,6 +68,12 @@ def smem_all_lcp(fm: fmops.DeviceFMIndex, tree, isa, codes, lens, active,
               ref_codes16, max_rounds)
 
 
+def launch_grid(B: int, device):
+    """(blocks, threads) of smem_all_lcp_kernel's launch of B reads."""
+    lib = kernels.load("smem_lcp")
+    return kernels.coop_grid("smem_lcp", lib.fgdp_smem_lcp_grid, B, device)
+
+
 def smem_all_lcp_kernel(fm, tree, isa, codes, lens, active,
                         min_seed_len: int, max_seeds: int, ref_codes16,
                         max_rounds: int = 24, work=None) -> SeedBatch:

@@ -1,10 +1,13 @@
 """Card probes: the counterparts of the JAX package's two measurement
-scripts, each with its hand-written kernel and plain PyTorch version.
+scripts, and the dependent-gather probe behind the seeding kernels'
+serial bounds, each with its hand-written kernel and plain PyTorch
+version.
 
   python -m fgdp_tpu_torch.probes.vpu_ceiling   (scripts/bench_vpu_ceiling.py)
   python -m fgdp_tpu_torch.probes.gather        (scripts/bench_gather_pallas.py)
+  python -m fgdp_tpu_torch.probes.chase         (no TPU counterpart)
 
-Both need the CUDA card and print what they measure on it.
+All need the CUDA card and print what they measure on it.
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
     python -m fgdp_tpu_torch.probes.sass
 
 runs `cuobjdump -sass` (CUDA toolkit) on the kernel libraries under
-build/fgdp_tpu_torch/ (building them first) and prints, for the SW,
-kswv and PairHMM kernels' row loops at every K, the chain loop's step
-loop at every K and the INT32 issue probe's step loop,
+build/fgdp_tpu_torch/ (building them first) and prints, for the SW and
+PairHMM kernels' row loops and the kswv wavefront's step loop at every
+K, the chain loop's step loop at every K and the INT32 issue probe's
+step loop,
 the SASS instructions of the loop body and the most frequent opcodes.
 A loop is the span from a backward branch's target to the branch; the
 outermost (largest) loop of a kernel's main body is taken, and
@@ -26,6 +27,8 @@ from ..ops import kernels
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_RES_FN = re.compile(r"\bFunction\s+([^\s:]+)\s*:")
+_STACK = re.compile(r"\bSTACK:(\d+)")
 _BRA = re.compile(r"\bBRA(?:\.\w+)*\s+(?:(0x[0-9a-f]+)|`\((\.L_x_\d+)\))")
 
 
@@ -44,6 +47,27 @@ def functions(so):
     return parse(subprocess.run([_cuobjdump(), "-sass", so],
                                 capture_output=True, text=True, timeout=300,
                                 check=True).stdout)
+
+
+def stack_frames(lib):
+    """{mangled kernel name: stack frame bytes} of the built library
+    `lib`, from `cuobjdump -res-usage` (whenever the library was built)."""
+    return parse_res_usage(subprocess.run(
+        [_cuobjdump(), "-res-usage", kernels._so(lib)], capture_output=True,
+        text=True, timeout=300, check=True).stdout)
+
+
+def parse_res_usage(listing):
+    """{function: largest STACK:n} of a `cuobjdump -res-usage` listing."""
+    out, cur = {}, None
+    for ln in listing.splitlines():
+        m = _RES_FN.search(ln)
+        if m:
+            cur = m.group(1)
+        m = _STACK.search(ln)
+        if m and cur is not None:
+            out[cur] = max(out.get(cur, 0), int(m.group(1)))
+    return out
 
 
 def parse(listing):
@@ -108,15 +132,43 @@ def outer_loop(instrs, labels):
     return len(best), collections.Counter(best)
 
 
-def template_loops(lib, kernel):
-    """{N: (instructions, opcodes)} of the outer loop of every
-    instantiation kernel<N> in the kernel library `lib`."""
+def last_loop(instrs, labels):
+    """outer_loop's count for the last innermost loop of the function
+    that holds a shuffle (the span of a backward branch with no other
+    inside it, the highest in address order): a kernel's step loop that
+    follows a loop of its first steps, inside a loop over chunks, before
+    loops that only store."""
+    end = next((a for a, t in instrs if t.split()[:1] == ["EXIT"]), None)
+    spans = []
+    for addr, text in instrs:
+        if end is not None and addr > end:
+            break
+        m = _BRA.search(text)
+        if not m:
+            continue
+        target = int(m.group(1), 16) if m.group(1) else \
+            labels.get(m.group(2))
+        if target is not None and target <= addr:
+            spans.append((target, addr))
+    inner = [sp for sp in spans if not any(o != sp and sp[0] <= o[0] and
+                                           o[1] <= sp[1] for o in spans)]
+    bodies = [[o for o in (opcode(t) for a, t in instrs if lo <= a <= hi)
+               if o != "NOP"] for lo, hi in sorted(inner)]
+    bodies = [b for b in bodies if "SHFL" in b]
+    if not bodies:
+        return None
+    return len(bodies[-1]), collections.Counter(bodies[-1])
+
+
+def template_loops(lib, kernel, loop=None):
+    """{N: (instructions, opcodes)} of the outer loop (or `loop`'s) of
+    every instantiation kernel<N> in the kernel library `lib`."""
     funcs, labels = functions(kernels._so(lib))
     out = {}
     for name, instrs in funcs.items():
         m = re.search(kernel + r"ILi(\d+)E", name)
         if m:
-            out[int(m.group(1))] = outer_loop(instrs, labels[name])
+            out[int(m.group(1))] = (loop or outer_loop)(instrs, labels[name])
     return out
 
 
@@ -133,9 +185,11 @@ def pairhmm_row_loops():
 
 
 def kswv_row_loops():
-    """{K: (instructions, opcodes)} of the kswv register kernel's row
-    loop (the target chunk's load and the row maxima's store included)."""
-    return template_loops("kswv", "kswv_regs_kernel")
+    """{K: (instructions, opcodes)} of the kswv register kernel's step
+    loop: the wavefront's main steps (one step a pass, the decision and
+    its rarely taken best-row copy included), after the loop of its first
+    32 steps and inside the loop over chunks."""
+    return template_loops("kswv", "kswv_regs_kernel", last_loop)
 
 
 def chain_step_loops():
@@ -166,7 +220,7 @@ def main():
                   loop, ("column a lane holds", k))
     for k, loop in sorted(kswv_row_loops().items()):
         if loop is not None:
-            _show(f"kswv K={k} row loop (32 lanes x {k} columns)",
+            _show(f"kswv K={k} step loop (32 lanes x {k} columns)",
                   loop, ("column a lane holds", k))
     for k, loop in sorted(pairhmm_row_loops().items()):
         if loop is not None:

@@ -365,14 +365,57 @@ def kswv_jobs(seed, n, QP, TP, empty=0.05):
     return q, qlen, t, tlen
 
 
-KSWV_EDGE_QPS = (1, 31, 32, 33, 160, 256)
+# kswv's register path: K = ceil(QP / 32) columns a lane, each QP at or
+# around a lane edge
+KSWV_EDGE_QPS = (1, 31, 32, 33, 63, 64, 160, 255, 256)
 KSWV_WIDE_QPS = (257, 400)
+# the CLI's defaults, o = e = 1 with b = 1, uneven penalties, a large
+# e_ins, and the widest scores the register path takes in a signed byte
 KSWV_PENALTIES = {"default": dict(a=1, b=4, o_del=6, e_del=1, o_ins=6,
                                   e_ins=1),
                   "pacbio": dict(a=1, b=1, o_del=1, e_del=1, o_ins=1,
                                  e_ins=1),
                   "uneven": dict(a=2, b=3, o_del=5, e_del=2, o_ins=3,
-                                 e_ins=1)}
+                                 e_ins=1),
+                  "large_e_ins": dict(a=1, b=4, o_del=6, e_del=1, o_ins=6,
+                                      e_ins=1000),
+                  "byte_edge": dict(a=127, b=128, o_del=6, e_del=1,
+                                    o_ins=6, e_ins=1)}
+# target lengths at the wavefront's edges (a row is decided 31 steps
+# after lane 0 computes it)
+KSWV_WAVE_TLENS = (0, 1, 31, 32, 33)
+
+
+def kswv_wave_jobs(seed, QP, n=24):
+    """Jobs at the edges of kswv's wavefront (csrc/kswv.cuh), TP = 2 QP +
+    40: targets of 0, 1, 31, 32, 33 and TP - 1 rows (jobs 0-5); two jobs
+    all padding (qlen = tlen = 0, jobs 6-7) and one with a query and no
+    target (8); a job whose best is its last row, decided in the drain
+    (9: an exact copy of the query ends there); a job whose row maxima
+    tie (10: two exact copies, te the first's last row); the rest
+    kswv_jobs'. Returns (q, qlen, t, tlen) and the rows jobs 9 and 10
+    must report as te."""
+    TP = 2 * QP + 40
+    q, qlen, t, tlen = kswv_jobs(seed, n, QP, TP, empty=0.0)
+    rng = np.random.default_rng(seed + 7)
+    for i, tl in enumerate(KSWV_WAVE_TLENS + (TP - 1,)):
+        tlen[i] = tl
+        t[i, tl:] = 4
+    for i in (6, 7):
+        q[i], t[i], qlen[i], tlen[i] = 4, 4, 0, 0
+    t[8], tlen[8] = 4, 0
+    for i in (9, 10):
+        q[i] = rng.integers(0, 4, QP)
+        t[i] = rng.integers(0, 4, TP)
+        qlen[i] = QP
+    T9 = TP - 3
+    tlen[9] = T9
+    t[9, T9 - QP:T9] = q[9]
+    t[9, T9:] = 4
+    tlen[10] = TP
+    t[10, 5:5 + QP] = q[10]
+    t[10, QP + 25:2 * QP + 25] = q[10]
+    return (q, qlen, t, tlen), (T9 - 1, 4 + QP)
 
 
 def recal_report(report: str, rg: str) -> str:
@@ -602,6 +645,37 @@ def seed_reads(g, B, L, seed):
         lens[i] = n
     active = np.arange(B) % 17 != 9
     return codes, lens, active
+
+
+def k3_edge_reads(g, L=64):
+    """Reads at K3's edges (B 8, L 64): an N at the anchor (position 0)
+    and one inside the extension; length 0; an inactive copy; a read whose
+    seeds outnumber a small max_seeds; copies of the genome; and, in a
+    batch of its own (k3_cap_reads), reads longer than L, which hit the
+    step cap 2 L L."""
+    rng = np.random.default_rng(21)
+    codes = np.full((8, L), 4, np.int32)
+    lens = np.full(8, L, np.int32)
+    for i in range(8):
+        p = int(rng.integers(0, len(g) - L))
+        codes[i] = g[p:p + L]
+    codes[0, 0] = 4                 # N at the first anchor
+    codes[0, 30] = 4                # and inside an extension
+    codes[1, 21] = 4
+    lens[2] = 0                     # empty read
+    active = np.ones(8, bool)
+    active[3] = False
+    return codes, lens, active
+
+
+def k3_cap_reads(g, L=6):
+    """Reads longer than the batch's L (codes past L read as N): their
+    anchors step one a step past L, so they run into the step cap 2 L L
+    (72 steps) before x reaches len (a read of 30 bases stops short)."""
+    rng = np.random.default_rng(22)
+    codes = np.stack([g[p:p + L] for p in rng.integers(0, len(g) - L, 4)])
+    lens = np.array([300, 120, L, 30], np.int32)
+    return codes.astype(np.int32), lens, np.ones(4, bool)
 
 
 def seed_k1_inputs(tables, codes, lens, active):
@@ -949,6 +1023,28 @@ def test_kswv_kernel_wide(dev, QP):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pen", ["default", "large_e_ins", "pacbio",
+                                 "byte_edge"])
+@pytest.mark.parametrize("QP", KSWV_EDGE_QPS)
+def test_kswv_kernel_wavefront_edges(dev, QP, pen):
+    """kswv_wave_jobs: targets of 0-33 and TP - 1 rows, padding jobs, a
+    best decided in the wavefront's drain, tied row maxima."""
+    jobs, (te9, te10) = kswv_wave_jobs(QP, QP)
+    _, te, _, _ = _kswv_on_card_equals_plain(dev, jobs, KSWV_PENALTIES[pen],
+                                             "registers")
+    if QP >= 16:
+        assert int(te[9]) == te9 and int(te[10]) == te10
+
+
+@pytest.mark.cuda
+def test_kswv_kernel_scores_outside_a_byte_take_the_wide_path(dev):
+    jobs = kswv_jobs(12, 64, 160, 300)
+    for pen in (dict(KSWV_PENALTIES["default"], a=128),
+                dict(KSWV_PENALTIES["default"], b=129)):
+        _kswv_on_card_equals_plain(dev, jobs, pen, "wide")
+
+
+@pytest.mark.cuda
 def test_kswv_kernel_on_a_mostly_empty_batch(dev):
     jobs = kswv_jobs(3, 256, 160, 512, empty=0.9)
     best, te, _, row_max = _kswv_on_card_equals_plain(
@@ -1257,6 +1353,22 @@ def test_gather_rows_kernel_equals_plain(dev, depth):
 
 
 @pytest.mark.cuda
+def test_gather_chase_kernel_equals_plain(dev):
+    """The dependent-gather probe: chains alone and under a grid barrier a
+    hop equal the plain chase; the latency and the barrier are timed."""
+    from fgdp_tpu_torch.probes import chase
+
+    occ = chase.table(dev, rows=50_000)
+    n0 = kernels.LAUNCHES["gather_chase"]
+    chase.check(occ)
+    assert torch.equal(chase.chase(occ, 3, 0), chase.chase_plain(occ, 3, 0))
+    assert kernels.LAUNCHES["gather_chase"] == n0 + 3
+    cold, warm = chase.latency_us(occ, hops=256)
+    assert cold > 0 and warm > 0
+    assert chase.barrier_us(occ, 8, 64, hops=64) > 0
+
+
+@pytest.mark.cuda
 def test_gather_rows_kernel_refuses_bad_arguments(dev):
     from fgdp_tpu_torch.probes import gather
 
@@ -1475,6 +1587,48 @@ def test_seed_kernels_equal_plain(dev, seed_ctx, B, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("max_seeds", [160, 2])
+def test_k3_kernel_edges_equal_plain(dev, seed_ctx, max_seeds):
+    """K3's group kernel on k3_edge_reads (N at the anchor and inside an
+    extension, length 0, inactive, overflow at max_seeds 2) and
+    k3_cap_reads (the step cap), equal to the torch-op loop."""
+    from fgdp_tpu_torch.ops import smem
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    for reads in (k3_edge_reads, k3_cap_reads):
+        codes, lens, active = reads(g)
+        args = (t[0], *(torch.as_tensor(a, device=dev)
+                        for a in (codes, lens, active)),
+                OPT.max_mem_intv, OPT.min_seed_len + 1, max_seeds)
+        work = torch.zeros(4, dtype=torch.int64, device=dev)
+        got = smem.seed_strategy_kernel(*args, work=work)
+        _seed_equal(got, smem.seed_strategy_plain(*args), "K3")
+        if reads is k3_cap_reads:
+            assert int(work[3]) == 2 * codes.shape[1] ** 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [6_144, 6_145])
+def test_k3_kernel_long_rows_equal_plain(dev, seed_ctx, L):
+    """Batches at the widest L whose eight code buffers a block fit in 48
+    KB (6,144: staged) and one past it (the codes read where they lie);
+    the reads themselves are short."""
+    from fgdp_tpu_torch.ops import smem
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    c0, l0, a0 = seed_reads(g, 24, 250, seed=12)
+    codes = np.full((24, L), 4, np.int32)
+    codes[:, :250] = c0
+    args = (t[0], *(torch.as_tensor(a, device=dev) for a in (codes, l0, a0)),
+            OPT.max_mem_intv, OPT.min_seed_len + 1, 160)
+    got = smem.seed_strategy(*args)
+    _seed_equal(got, smem.seed_strategy_plain(*args), "K3")
+    assert int(got.count.sum()) > 0
+
+
+@pytest.mark.cuda
 def test_seed_kernels_tight_caps_equal_plain(dev, seed_ctx):
     """Caps tight enough that K1's cascade drops lanes and its round cap
     binds, max_seeds and sj_cap overflow and K2's ascents hit their cap."""
@@ -1523,8 +1677,9 @@ def test_seed_kernels_time_each_launch_when_asked(dev, seed_ctx):
     # the work counters: two 96-byte rows a forward step, every step
     work = torch.zeros(4, dtype=torch.int64, device=dev)
     smem.seed_strategy_kernel(*args, work=work)
-    gathered, _, steps, longest = work.tolist()
+    gathered, ext_max, steps, longest = work.tolist()
     assert steps >= longest > 0 and gathered % 192 == 0 and gathered > 0
+    assert 0 < ext_max < longest and 192 * ext_max <= gathered
 
 
 @pytest.mark.cuda

@@ -7,7 +7,11 @@ jobs; `ksw_align_local_batch` fgdp_tpu's batch results and the scalar
 ksw_align2 transcription's. The kernel's own per-job logic
 (csrc/kswv.cuh), built on the host with 32 lanes in lockstep for the
 register path and one lane for the wide path, must equal the plain
-version at the register path's lane edges and above its widest query."""
+version at the register path's lane edges and above its widest query,
+and the register path (the lanes an anti-diagonal wavefront) must equal
+the plain version and fgdp_tpu's _forward at the wavefront's edges:
+targets of 0-33 rows, a best decided in the drain, tied row maxima,
+padding jobs."""
 
 import ctypes
 
@@ -24,7 +28,7 @@ from fgdp_tpu_torch.ops import kernels, kswv
 
 from test_kswv import _random_jobs
 from test_torch_cuda import (KSWV_EDGE_QPS, KSWV_PENALTIES, KSWV_WIDE_QPS,
-                             kswv_jobs)
+                             kswv_jobs, kswv_wave_jobs)
 from test_torch_seeding import one_torch_thread  # noqa: F401
 
 PACBIO = dict(a=1, b=1, o_del=1, e_del=1, o_ins=1, e_ins=1,
@@ -127,3 +131,57 @@ def test_host_twin_wide_path_equals_plain(QP, pen):
     if QP > lib.fgdp_kswv_reg_max_qp():
         with pytest.raises(ValueError):
             _twin(lib.fgdp_kswv_host, jobs, pen)
+
+
+@pytest.mark.parametrize("pen", ["default", "large_e_ins", "pacbio"])
+@pytest.mark.parametrize("QP", KSWV_EDGE_QPS)
+def test_host_twin_wavefront_edges_equal_plain_and_jax(QP, pen):
+    """kswv_wave_jobs' edges through the register path's twin, the plain
+    version and fgdp_tpu's _forward: all four outputs equal."""
+    lib = kernels.build_host_twin()
+    jobs, (te9, te10) = kswv_wave_jobs(QP, QP)
+    pen = KSWV_PENALTIES[pen]
+    got = _twin(lib.fgdp_kswv_host, jobs, pen)
+    want = _plain(jobs, pen)
+    jw = jkswv._forward(*(jnp.asarray(a) for a in jobs), **pen)
+    for a, b, c in zip(got, want, jw):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, np.asarray(c))
+    best, te, best_row, row_max = got
+    assert (best[6:9] == 0).all() and (te[6:9] == -1).all()
+    assert not row_max[6:9].any() and not best_row[6:8].any()
+    assert (row_max[1, 1:] == 0).all()
+    if QP >= 16:   # the copies' full score is reached nowhere else
+        assert best[9] == best[10] == QP * pen["a"]
+        assert te[9] == te9 and te[10] == te10
+
+
+def test_scores_outside_a_byte_take_the_wide_path():
+    """A match score or mismatch penalty outside a signed byte leaves the
+    register path (its twin refuses, as the C entry point sends the launch
+    to the wide path); the wide path equals the plain version there."""
+    lib = kernels.build_host_twin()
+    jobs = kswv_jobs(12, 24, 160, 300)
+    for pen in (dict(KSWV_PENALTIES["default"], a=128),
+                dict(KSWV_PENALTIES["default"], b=129)):
+        with pytest.raises(ValueError):
+            _twin(lib.fgdp_kswv_host, jobs, pen)
+        got = _twin(lib.fgdp_kswv_wide_host, jobs, pen)
+        for a, b in zip(got, _plain(jobs, pen)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("QP", (33, 160))
+def test_host_twin_wavefront_with_negative_insertion_penalties(QP):
+    """Negative insertion penalties: the lanes above the wavefront's edge
+    must hold H = E = 0 by the select (with penalties >= 0 the edge steps
+    leave them at 0 by themselves); twin, plain version and fgdp_tpu's
+    _forward equal."""
+    lib = kernels.build_host_twin()
+    pen = dict(a=1, b=4, o_del=6, e_del=1, o_ins=-7, e_ins=-1)
+    jobs = kswv_jobs(3, 24, QP, 200)
+    got = _twin(lib.fgdp_kswv_host, jobs, pen)
+    jw = jkswv._forward(*(jnp.asarray(a) for a in jobs), **pen)
+    for a, b, c in zip(got, _plain(jobs, pen), jw):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, np.asarray(c))

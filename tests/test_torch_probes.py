@@ -7,7 +7,10 @@ scripts' main(), which also times them, and they name TPU memory spaces
 interpret mode on the CPU. The transcriptions below follow their bodies,
 scripts/bench_vpu_ceiling.py:44-61 and scripts/bench_gather_pallas.py:
 26-49 with the chain of :73-82. The kernels' own per-element logic
-(csrc/vpu_ceiling.cuh) runs here through the g++ host twin."""
+(csrc/vpu_ceiling.cuh) runs here through the g++ host twin. The
+dependent-gather probe (probes/chase.py, no TPU counterpart) has its
+plain chase held against a scalar transcription of csrc/gather_chase.cu's
+hop."""
 
 import os
 
@@ -16,7 +19,7 @@ import pytest
 import torch
 
 from fgdp_tpu_torch.ops import kernels
-from fgdp_tpu_torch.probes import gather
+from fgdp_tpu_torch.probes import chase, gather
 from fgdp_tpu_torch.probes import vpu_ceiling as vc
 
 from test_torch_seeding import one_torch_thread  # noqa: F401
@@ -200,6 +203,38 @@ def test_sass_outer_loop_is_the_largest_backward_span():
     assert sass.outer_loop(funcs[name][:3], {}) is None
 
 
+def test_sass_last_loop_takes_the_later_top_level_loop():
+    """Two loops in a row (kswv's edge steps, then its main steps inside
+    a loop over chunks), then a loop that only stores: the last
+    innermost one with a shuffle."""
+    from fgdp_tpu_torch.probes import sass
+
+    text = """
+        code for sm_90a
+                Function : _Z16kswv_regs_kernelILi5EEvPKi
+        /*0000*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0010*/                   SEL R3, R2, R4, P0 ;
+        /*0020*/                   SHFL.UP PT, R5, R3, 0x1, RZ ;
+        /*0030*/               @P1 BRA 0x0 ;
+        /*0040*/                   LDG.E R6, [R2] ;
+        /*0050*/                   PRMT R6, R2, 0x8880, RZ ;
+        /*0060*/                   SHFL.IDX PT, R8, R7, 0x1f, 0x1f ;
+        /*0070*/               @P2 BRA 0x50 ;
+        /*0080*/               @P3 BRA 0x40 ;
+        /*0090*/                   STG.E [R2], R3 ;
+        /*00a0*/               @P4 BRA 0x90 ;
+        /*00b0*/                   EXIT ;
+"""
+    funcs, labels = sass.parse(text)
+    name = "_Z16kswv_regs_kernelILi5EEvPKi"
+    n, ops = sass.last_loop(funcs[name], labels[name])
+    # 0x50 .. 0x70: after the first loop, inside the chunk loop 0x40 ..
+    # 0x80, before the store loop
+    assert n == 3 and ops["SHFL"] == 1 and ops["BRA"] == 1
+    assert sass.outer_loop(funcs[name], labels[name])[0] == 5
+    assert sass.last_loop(funcs[name][:3], {}) is None
+
+
 def test_sass_row_loops_by_instantiation(monkeypatch):
     """pairhmm_row_loops takes the register kernel's instantiations by K
     and leaves the wide kernel out."""
@@ -221,6 +256,60 @@ def test_sass_row_loops_by_instantiation(monkeypatch):
     assert loops[13][0] == 6 and sass.sw_row_loops() == {}
 
 
+def test_sass_stack_frames_from_res_usage():
+    """Each function's STACK:n of a `cuobjdump -res-usage` listing, the
+    figures on the name's line or on the next, the largest over the
+    library's images."""
+    from fgdp_tpu_torch.probes import sass
+
+    text = """
+Fatbin elf code:
+================
+arch = sm_90a
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _Z20seed_strategy_kernel6K3Argsi:
+  REG:40 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:616 TEXTURE:0
+ Function _Z15smem_lcp_kernelILi1EEv7LcpArgsiPiS1_: REG:64 STACK:832 SHARED:16
+ Function _Z20seed_strategy_kernel6K3Argsi:
+  REG:38 STACK:16 SHARED:0 LOCAL:0
+"""
+    assert sass.parse_res_usage(text) == {
+        "_Z20seed_strategy_kernel6K3Argsi": 16,
+        "_Z15smem_lcp_kernelILi1EEv7LcpArgsiPiS1_": 832}
+    assert sass.parse_res_usage("Resource usage:\n Common:\n") == {}
+
+
+def numpy_chase(occ, chains, hops, p0):
+    """csrc/gather_chase.cu's chains, one scalar hop at a time."""
+    nb = occ.shape[0]
+    out = np.zeros((chains, 2), np.int64)
+    for t in range(chains):
+        p = (p0 + 7919 * t) % nb
+        q = p + 1 if p + 1 < nb else p
+        x = 0
+        for h in range(hops):
+            s = int(occ[p].astype(np.int64).sum() +
+                    occ[q].astype(np.int64).sum()) & 0xFFFFFFFF
+            x = s - 2**32 if s >= 2**31 else s
+            p = ((s & 0x7FFFFFFF) * 40503 + h) % nb
+            q = min(p + ((s >> 8) & 3), nb - 1)
+        out[t] = (x, p)
+    return out
+
+
+@pytest.mark.parametrize("hops", [0, 1, 40])
+def test_chase_plain_matches_the_kernels_hop(hops):
+    occ = chase.table("cpu", seed=2, rows=997)
+    got = chase.chase(occ, 5, hops, 31)
+    assert got.dtype == torch.int32 and got.shape == (5, 2)
+    assert np.array_equal(got.numpy(), numpy_chase(occ.numpy(), 5, hops, 31))
+    assert (got[:, 1] < 997).all()
+    if hops > 1:   # the sums wrap int32 in both
+        assert (got[:, 0] < 0).any()
+
+
 def test_probe_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch on CUDA tensors or raise before any
     build."""
@@ -232,4 +321,6 @@ def test_probe_wrappers_refuse_cpu_tensors():
                                   torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="n_chains"):
         vc.vpu_ceiling(torch.zeros(8), 3, 6)
+    with pytest.raises(ValueError, match="CUDA"):
+        chase.chase_kernel(torch.zeros((4, 24), dtype=torch.int32), 1, 2)
     assert kernels.LAUNCHES == n0

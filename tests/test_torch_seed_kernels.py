@@ -5,7 +5,9 @@ The twins run each kernel's own logic: the rank primitives of csrc/fm.cuh
 (D1) one interval at a time; K1 (csrc/smem_lcp.cuh, D2) and K2
 (csrc/k2_lcp.cuh, D3) with every lane in one thread and the wave
 machine's counts taken on the host step by step, the cascade's
-compaction included; K3 (csrc/seed_strategy.cuh, D4) one read at a time.
+compaction included; K3 (csrc/seed_strategy.cuh, D4) one read at a time,
+a read's 16 lanes in lockstep, and the group rank function behind it
+(fm_forward_extend2_group) on every row of the index.
 Every output is held exactly (tolerance 0): seeds, counts and overflow
 flags, at default caps and at caps tight enough that the cascade drops
 lanes, the round caps bind, and max_seeds and sj_cap overflow. The reads
@@ -34,8 +36,9 @@ from fgdp_tpu.utils import dna as jdna
 from fgdp_tpu_torch.ops import fm, kernels, smem, smem_k2lcp, smem_lcp
 from fgdp_tpu_torch.ops.smem import SeedBatch
 
-from test_torch_cuda import (OPT, gen_genome, seed_index, seed_k1_inputs,
-                             seed_k2_jobs, seed_reads, seed_tables)
+from test_torch_cuda import (OPT, gen_genome, k3_cap_reads, k3_edge_reads,
+                             seed_index, seed_k1_inputs, seed_k2_jobs,
+                             seed_reads, seed_tables)
 from test_torch_seeding import one_torch_thread  # noqa: F401
 
 B, L = 64, 250
@@ -138,7 +141,11 @@ def twin_k2(t, codes, lens, jobs, msl, into, sj_cap, ascent_cap,
                              into.m.shape[1], into)
 
 
-def twin_k3(t, codes, lens, active, max_intv, msl, max_seeds):
+def twin_k3(t, codes, lens, active, max_intv, msl, max_seeds, staged=True,
+            work=None):
+    """K3's twin (its group's 16 lanes in lockstep), the codes staged in
+    the group's buffer or read where they lie; `work`, an int64[4] numpy
+    array, receives its work counters."""
     dfm = t[0]
     keep, fa = _fm_args(dfm)
     c = np.ascontiguousarray(codes, np.int32)
@@ -147,7 +154,8 @@ def twin_k3(t, codes, lens, active, max_intv, msl, max_seeds):
     out = _out(c.shape[0], max_seeds)
     rc = kernels.build_host_twin().fgdp_seed_strategy_host(
         *fa, _p(c), _p(ln), _p(act), c.shape[0], c.shape[1], max_intv, msl,
-        max_seeds, *map(_p, out))
+        max_seeds, *map(_p, out), None if work is None else _p(work),
+        int(staged))
     assert rc == 0 and keep
     return _batch(out)
 
@@ -314,3 +322,87 @@ def test_k3_twin_equals_torch_and_jax(ctx, caps):
     assert int(got.count.sum()) > 0
     if caps == "tight":
         assert bool(got.overflow.any())
+
+
+def test_fm_group_ranks_equal_fetch_and_extend2(ctx):
+    """The group form of forward_extend2 (csrc/fm.cuh, K3's kernel): each
+    of the 16 lanes' ranks equals fm_fetch's (occ1 and occ2c at l and at
+    l + s) on every row of the index, at every character ca (its pair
+    code's second character), with cb every character too; and the
+    group's six outputs equal fm_forward_extend2's, the torch ops' and
+    fgdp_tpu's. The rows at and past the sentinel and r1_row, intervals
+    across the sentinel, and the table's ends are among them."""
+    dfm = ctx["t"][0]
+    jdfm = ctx["j"][0]
+    N = dfm.text_len
+    rng = np.random.default_rng(11)
+    rows = np.arange(-(-N // 32))
+    l = np.minimum(rows * 32 + rng.integers(0, 32, rows.size), N)
+    edge = np.array([0, 1, N - 1, N, dfm.sentinel_row - 1, dfm.sentinel_row,
+                     dfm.sentinel_row + 1, dfm.r1_row - 1, dfm.r1_row,
+                     dfm.r1_row + 1])
+    l = np.concatenate([l, edge]).clip(0, N)
+    ca = np.repeat(np.arange(25) // 5, l.size)
+    cb = np.repeat(np.arange(25) % 5, l.size)
+    l = np.tile(l, 25).astype(np.int32)
+    s = np.minimum(rng.integers(0, 300, l.size), N - l).astype(np.int32)
+    # a fifth across the sentinel
+    across = (rng.random(l.size) < 0.2) & (l <= dfm.sentinel_row)
+    s[across] = np.minimum(dfm.sentinel_row - l[across] + 1 +
+                           rng.integers(0, 64, int(across.sum())),
+                           N - l[across])
+    k = rng.integers(0, N, l.size).astype(np.int32)
+    ca, cb = ca.astype(np.int32), cb.astype(np.int32)
+    keep, fa = _fm_args(dfm)
+    out = np.zeros((l.size, 44), np.int32)
+    assert kernels.build_host_twin().fgdp_fm_group_host(
+        *fa, l.size, _p(k), _p(l), _p(s), _p(ca), _p(cb), _p(out)) == 0
+    np.testing.assert_array_equal(out[:, :16], out[:, 16:32])
+    np.testing.assert_array_equal(out[:, 32:38], out[:, 38:44])
+    T = lambda a: torch.as_tensor(a)
+    want_t = np.stack([x.numpy() for tr in fm.forward_extend2(
+        dfm, T(k), T(l), T(s), T(ca), T(cb)) for x in tr], 1)
+    J = jnp.asarray
+    want_j = np.stack([np.asarray(x) for tr in jfm.forward_extend2(
+        jdfm, J(k), J(l), J(s), J(ca), J(cb)) for x in tr], 1)
+    np.testing.assert_array_equal(out[:, 32:38], want_t)
+    np.testing.assert_array_equal(out[:, 32:38], want_j)
+    # every row, the corrections' rows on both sides, and spans across
+    # the sentinel were taken
+    assert np.unique(l // 32).size >= rows.size
+    assert (l > dfm.r1_row).any() and (l <= dfm.r1_row).any()
+    assert ((l <= dfm.sentinel_row) & (dfm.sentinel_row < l + s)).sum() > 100
+    assert keep
+
+
+@pytest.mark.parametrize("max_seeds", [160, 2])
+@pytest.mark.parametrize("batch", ["edges", "cap"])
+def test_k3_twin_edges_equal_torch_and_jax(ctx, batch, max_seeds):
+    """K3's twin (codes staged and read where they lie) against the
+    torch-op loop and fgdp_tpu's seed_strategy on k3_edge_reads and
+    k3_cap_reads; the work counters show the cap."""
+    g = gen_genome(120_000, seed=0)
+    codes, lens, active = (k3_edge_reads if batch == "edges"
+                           else k3_cap_reads)(g)
+    t, jdfm = ctx["t"], ctx["j"][0]
+    msl = OPT.min_seed_len + 1
+    want = smem.seed_strategy(t[0], torch.as_tensor(codes),
+                              torch.as_tensor(lens), torch.as_tensor(active),
+                              OPT.max_mem_intv, msl, max_seeds)
+    jb = _jax_k3(OPT.max_mem_intv, msl, max_seeds)(
+        jdfm, jnp.asarray(codes), jnp.asarray(lens), jnp.asarray(active))
+    for staged in (True, False):
+        work = np.zeros(4, np.int64)
+        got = twin_k3(t, codes, lens, active, OPT.max_mem_intv, msl,
+                      max_seeds, staged=staged, work=work)
+        _eq(want, got, f"twin (staged {staged}) vs torch")
+        _eq(jb, got, f"twin (staged {staged}) vs fgdp_tpu")
+    L = codes.shape[1]
+    assert 0 <= work[1] * 192 <= work[0] and work[1] < work[3]
+    if batch == "cap":
+        assert work[3] == 2 * L * L
+    else:
+        assert int(got.count[2]) == 0 and int(got.count[3]) == 0
+        assert int(got.count[0]) > 0
+        if max_seeds == 2:
+            assert bool(got.overflow.any())
