@@ -53,7 +53,8 @@ fails loudly:
               (the table bytes its lanes gather, counted by the kernel)
               and its serial bounds (a read alone on the kernel, and the
               design-independent one: the dependent-gather probe on the
-              index, with a grid barrier a step for K1 and K2); every
+              index, with the cheapest grid barrier a step for K1 and
+              K2); K1's wave split (us a grid step by wave); every
               chain filter (D5) launch held
               exactly against its plain version, its launches and
               summed ms by (B, C); the chain split of the first primary
@@ -422,8 +423,11 @@ def phase_card():
                       mhz=lanes["mhz"])
 
 
-# kernels whose every function must keep no stack frame
-NO_STACK = ("seed_strategy",)
+# kernels that must keep no stack frame, in every function whose name
+# holds the pattern: K3's every function, K1's one-lane kernels (R = 1,
+# the only ones mem runs: more lanes a thread need more reads than the
+# card holds threads)
+NO_STACK = {"seed_strategy": "", "smem_lcp": "ILi1E"}
 
 
 def phase_build():
@@ -435,13 +439,14 @@ def phase_build():
         for ln in rec["log"].splitlines():
             if "registers" in ln or "spill" in ln or "Function prop" in ln:
                 log(f"[build] {name}: {ln.strip()}")
-    for name in NO_STACK:
+    for name, pat in NO_STACK.items():
         # read from the built library, so a library built by an earlier
         # run is checked too
         frames = sass.stack_frames(name)
         log(f"[build] {name}: stack frames (cuobjdump -res-usage) {frames}")
-        if not frames or max(frames.values()) != 0:
-            raise AssertionError(f"{name} keeps a stack frame: {frames}")
+        held = {f: v for f, v in frames.items() if pat in f}
+        if not held or max(held.values()) != 0:
+            raise AssertionError(f"{name} keeps a stack frame: {held}")
     for name in kernels.KERNELS:
         kernels.load(name)
 
@@ -1511,9 +1516,13 @@ def seeding_split(al, codes, lens, active, kernel):
 
 def seed_work(name, *a, **kw):
     """A seeding kernel's launch with its work counters: (output, [table
-    bytes gathered, grid steps, lane steps, longest lane's own steps])."""
+    bytes gathered, grid steps, lane steps, longest lane's own steps],
+    then for K1 its wave split: ns, then grid steps, of each of
+    smem_lcp.WAVE_BUCKETS)."""
     import torch
-    work = torch.zeros(4, dtype=torch.int64, device=a[0].counts.device)
+    from fgdp_tpu_torch.ops import smem_lcp
+    n = smem_lcp.WORK_LEN if name == "smem_lcp" else 4
+    work = torch.zeros(n, dtype=torch.int64, device=a[0].counts.device)
     out = _seed_fn(name, 1)(*a, **kw, work=work)
     return out, [int(v) for v in work.cpu()]
 
@@ -1531,7 +1540,9 @@ def seed_rows(al, codes, lens, active):
     kernel under test) and the design-independent one (probes.chase on
     this index's occ rows: K3's most gather steps of a read times the
     dependent gather's latency, K1's and K2's grid steps times the
-    latency plus one grid barrier at their launch's grid)."""
+    latency plus the cheapest grid barrier, cooperative_groups' or the
+    kernels' own GridBar in either form, at their launch's grid). Also
+    K1's wave split (µs a grid step by wave)."""
     import torch
     from fgdp_tpu_torch.ops import smem_k2lcp, smem_lcp
     from fgdp_tpu_torch.probes import chase
@@ -1588,13 +1599,17 @@ def seed_rows(al, codes, lens, active):
     # for K1 and K2 one grid barrier at the grid their launch takes
     occ = al.dfm.occ_fused
     cold, lat = chase.latency_us(occ)
-    grids = {"smem_lcp": smem_lcp.launch_grid(B, occ.device),
+    plan = smem_lcp.launch_plan(B, codes.shape[1], occ.device)
+    grids = {"smem_lcp": (plan.blocks, plan.threads),
              "k2_lcp": smem_k2lcp.launch_grid(job[0].numel(), occ.device)}
-    bar = {k: chase.barrier_us(occ, *g) for k, g in grids.items()}
+    bars = {k: {sync: chase.barrier_us(occ, *g, sync=sync)
+                for sync in chase.BARRIERS} for k, g in grids.items()}
+    bar = {k: min(b.values()) for k, b in bars.items()}
     log(f"[scale] gather_chase on the scale index ({occ.shape[0]} rows): "
         f"{lat:.4f} us a hop warm (cold {cold:.4f}); a grid barrier "
-        + ", ".join(f"{bar[k]:.4f} us at {grids[k][0]} x {grids[k][1]} "
-                    f"({k})" for k in grids))
+        + ", ".join(f"at {grids[k][0]} x {grids[k][1]} ({k}): " + ", ".join(
+            f"{sync} {us:.4f} us" for sync, us in bars[k].items())
+            for k in grids))
     for name, (a, kw) in full.items():
         out, work = seed_work(name, *a, **kw)
         ms = timed_ms(name, lambda: _seed_fn(name, 1)(*a, **kw))
@@ -1611,8 +1626,18 @@ def seed_rows(al, codes, lens, active):
                    f"{1e-3 * work[3] * lat:.4f} ms")
         else:
             indep = 1e-3 * work[1] * (lat + bar[name])
+            cheap = min(bars[name], key=bars[name].get)
             how = (f"{work[1]} grid steps x ({lat:.4f} + {bar[name]:.4f} "
-                   f"us)")
+                   f"us, the {cheap} barrier)")
+        if name == "smem_lcp":
+            nb = len(smem_lcp.WAVE_BUCKETS)
+            log(f"[scale] smem_lcp wave split (%globaltimer, thread 0 of "
+                f"block 0), us a grid step by wave: " + ", ".join(
+                    f"{w} {1e-3 * work[4 + i] / max(work[4 + nb + i], 1):.3f}"
+                    f" ({work[4 + nb + i]} steps, "
+                    f"{1e-6 * work[4 + i]:.4f} ms)"
+                    for i, w in enumerate(smem_lcp.WAVE_BUCKETS))
+                + f"; {sum(work[4 + nb:4 + 2 * nb])} grid steps in all")
         rows_out = out.count.numel()
         nbytes = work[0] + in_bytes + 16 * int(out.count.sum()) + \
             5 * rows_out + (24 * job[0].numel() if name == "k2_lcp" else 0)
@@ -2270,8 +2295,8 @@ def phase_probes(dev, lanes):
     occ = chase.table(dev)
     chase.check(occ)
     log(f"[probes] gather_chase kernel equals the plain chase on a random "
-        f"{chase.NBLOCKS}x{chase.ROW} occ-shaped table, alone and under a "
-        f"grid barrier a hop")
+        f"{chase.NBLOCKS}x{chase.ROW} occ-shaped table, alone and under "
+        f"each grid barrier ({', '.join(chase.BARRIERS)}) a hop")
 
     kernels.reset_launches()
     vrows, best = vc.measure(dev, log=log)

@@ -127,37 +127,85 @@ FGDP_HD void fm_bwd_from_ranks(const FmView& fm, const FmRanks& lo,
   ns = sz[cc];
 }
 
-// _fetch_pair: Occ(c2, i) and Occ2((c1, c2), i) only
-FGDP_HD void fm_fetch_pair(const FmView& fm, int i, int c2, int pair,
-                           int& occ1, int& occ2) {
-  unsigned pm[2];
-  const int* row = fm_row(fm, i, pm);
+// _fetch_pair, split in two: what a pair rank reads of one row (the
+// row, its packed BWT words B and B1, and the counts Occ(c2) and
+// Occ2(pair) at the block start), and Occ(c2, i) and Occ2((c1, c2), i)
+// from them
+struct FmPairRow {
+  const int* row;
   int w4[4];
-  fgdp_ld4(row + 20, w4);
+  int n1, n2;
+};
+
+FGDP_HD void fm_pair_load(const FmView& fm, int i, int c2, int pair,
+                          FmPairRow& o) {
+  unsigned pm[2];
+  o.row = fm_row(fm, i, pm);
+  fgdp_ld4(o.row + 20, o.w4);
+  o.n1 = fgdp_ld(o.row + c2);
+  o.n2 = fgdp_ld(o.row + 4 + pair);
+}
+
+FGDP_HD void fm_pair_rank(const FmView& fm, const FmPairRow& r, int i,
+                          int c2, int pair, int& occ1, int& occ2) {
+  const int rem = i & 31;
+  unsigned pm[2];
+  pm[0] = fm_prefix(fgdp_min(rem, 16));
+  pm[1] = fm_prefix(fgdp_max(rem - 16, 0));
   const int c1 = pair >> 2;
   int n1 = 0, n2 = 0;
   for (int t = 0; t < 2; ++t) {
-    const unsigned mb = fm_sel((unsigned)w4[t], c2);
-    const unsigned mb1 = fm_sel((unsigned)w4[t + 2], c1);
+    const unsigned mb = fm_sel((unsigned)r.w4[t], c2);
+    const unsigned mb1 = fm_sel((unsigned)r.w4[t + 2], c1);
     n1 += fm_popc(mb & pm[t]);
     n2 += fm_popc(mb & mb1 & pm[t]);
   }
-  occ1 = fgdp_ld(row + c2) + n1 - ((c2 == 0 && i > fm.sentinel_row) ? 1 : 0);
-  occ2 = fgdp_ld(row + 4 + pair) + n2 -
-         ((pair == fm.cc_r0 && i > fm.sentinel_row) ? 1 : 0) -
+  occ1 = r.n1 + n1 - ((c2 == 0 && i > fm.sentinel_row) ? 1 : 0);
+  occ2 = r.n2 + n2 - ((pair == fm.cc_r0 && i > fm.sentinel_row) ? 1 : 0) -
          ((pair == fm.cc_r1 && i > fm.r1_row) ? 1 : 0);
 }
 
 // Prepend c2, then c1 (pattern P -> c1 c2 P) from the same two rows:
-// (k1, s1) after c2, (k2, s2) after c1 c2
+// (k1, s1) after c2, (k2, s2) after c1 c2. C and C2 come from `cnt`
+// (int[4]) and `c2t` (int[16]), which K1 keeps in shared memory; an
+// interval whose two ends lie in one 32-row block reads that row once.
+FGDP_HD void fm_backward_extend2(const FmView& fm, const int* cnt,
+                                 const int* c2t, int k, int s, int c2,
+                                 int c1, int& k1, int& s1, int& k2,
+                                 int& s2) {
+  const int cc2 = fm_clamp3(c2), cc1 = fm_clamp3(c1);
+  const int pair = cc1 * 4 + cc2;
+  FmPairRow lo, hi;
+  fm_pair_load(fm, k, cc2, pair, lo);
+  unsigned pm[2];
+  if (fm_row(fm, k + s, pm) == lo.row)
+    hi = lo;
+  else
+    fm_pair_load(fm, k + s, cc2, pair, hi);
+  int o1lo, o2lo, o1hi, o2hi;
+  fm_pair_rank(fm, lo, k, cc2, pair, o1lo, o2lo);
+  fm_pair_rank(fm, hi, k + s, cc2, pair, o1hi, o2hi);
+  k1 = cnt[cc2] + o1lo;
+  s1 = o1hi - o1lo;
+  k2 = c2t[pair] + o2lo;
+  s2 = o2hi - o2lo;
+}
+
+// the same with C and C2 from the index's own tables (read-only loads)
+// and both rows always read: K2's form (taking K1's, with its generic
+// table loads and the shared-row test, made K2 0.42 -> 0.455 ms on an
+// H100 80GB HBM3 at 700 W, chip_smoke.py's scale phase)
 FGDP_HD void fm_backward_extend2(const FmView& fm, int k, int s, int c2,
                                  int c1, int& k1, int& s1, int& k2,
                                  int& s2) {
   const int cc2 = fm_clamp3(c2), cc1 = fm_clamp3(c1);
   const int pair = cc1 * 4 + cc2;
+  FmPairRow lo, hi;
+  fm_pair_load(fm, k, cc2, pair, lo);
+  fm_pair_load(fm, k + s, cc2, pair, hi);
   int o1lo, o2lo, o1hi, o2hi;
-  fm_fetch_pair(fm, k, cc2, pair, o1lo, o2lo);
-  fm_fetch_pair(fm, k + s, cc2, pair, o1hi, o2hi);
+  fm_pair_rank(fm, lo, k, cc2, pair, o1lo, o2lo);
+  fm_pair_rank(fm, hi, k + s, cc2, pair, o1hi, o2hi);
   k1 = fgdp_ld(fm.counts + cc2) + o1lo;
   s1 = o1hi - o1lo;
   k2 = fgdp_ld(fm.c2 + pair) + o2lo;

@@ -11,8 +11,12 @@
 // One thread a chain; the chain's last x and p are its output, which the
 // plain version (probes/chase.py, torch ops) gives alike. With `sync` the
 // launch is cooperative and every thread of the grid passes one grid
-// barrier (cooperative_groups' grid sync, as the K1 and K2 kernels'
-// steps do) after each hop; with chains = 0 it times the barriers alone.
+// barrier after each hop: sync 1 cooperative_groups' grid sync (the
+// first K1 and K2 kernels' barrier), sync 2 the K1 and K2 kernels'
+// hand-written GridBar (seed_waves.cuh) with a count of one a block, in
+// the form (one word or two) the kernels take for blocks x threads
+// lanes, sync 3 GridBar's two-word (wide) form at any grid; with chains
+// = 0 it times the barriers alone.
 //
 // What bounds it: by design, the latency of one hop (a dependent gather
 // of two rows from L2 or device memory) times the hops; the bytes (192 a
@@ -20,10 +24,21 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "seed_waves.cuh"
+
+// SYNC: 0 no barrier, 1 cooperative_groups' grid sync, 2 GridBar, 3
+// GridBar wide (a template argument, so the lone chain's hop loop
+// carries no barrier)
+template <int SYNC>
 __global__ void gather_chase_kernel(const int4* __restrict__ occ,
                                     long long nblocks, int chains, int hops,
-                                    int sync, long long p0, int* out) {
+                                    long long p0, int* out,
+                                    unsigned long long* slots) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  GridBar g{slots, nullptr, nullptr,
+            SYNC == 2 &&
+                (long long)gridDim.x * blockDim.x < SEED_NARROW_LANES &&
+                gridDim.x < (1u << 13)};
   long long p = (p0 + 7919LL * t) % nblocks;
   long long q = p + 1 < nblocks ? p + 1 : p;
   int x = 0;
@@ -46,7 +61,10 @@ __global__ void gather_chase_kernel(const int4* __restrict__ occ,
       q = p + ((s >> 8) & 3);
       if (q > nblocks - 1) q = nblocks - 1;
     }
-    if (sync) cooperative_groups::this_grid().sync();
+    if constexpr (SYNC == 1)
+      cooperative_groups::this_grid().sync();
+    else if constexpr (SYNC >= 2)
+      g.sync();
   }
   if (t < chains) {
     out[2 * t] = x;
@@ -55,30 +73,37 @@ __global__ void gather_chase_kernel(const int4* __restrict__ occ,
 }
 
 // occ int32[nblocks, 24] (16-byte aligned); out int32[chains, 2]; chains
-// <= blocks x threads. sync != 0 launches cooperatively (all blocks
-// resident, else cudaErrorCooperativeLaunchTooLarge). ev_start/ev_end
+// <= blocks x threads. sync 1, 2 or 3 launches cooperatively (all
+// blocks resident, else cudaErrorCooperativeLaunchTooLarge); sync 2 and
+// 3 need slots, int64[6] zeroed (GridBar's), else null. ev_start/ev_end
 // are cudaEvent_t or null, recorded on `stream` just before and just
 // after the launch. Returns cudaGetLastError() or the launch's error, or
 // cudaErrorInvalidValue for a bad shape.
 extern "C" int fgdp_gather_chase(const int* occ, long long nblocks,
                                  int chains, int hops, int blocks,
                                  int threads, int sync, long long p0,
-                                 int* out, void* ev_start, void* ev_end,
+                                 int* out, unsigned long long* slots,
+                                 void* ev_start, void* ev_end,
                                  void* stream) {
   if (nblocks < 1 || chains < 0 || hops < 0 || blocks < 1 || threads < 1 ||
-      (long long)chains > (long long)blocks * threads || p0 < 0)
+      (long long)chains > (long long)blocks * threads || p0 < 0 ||
+      sync < 0 || sync > 3 || (sync >= 2 && (slots == nullptr ||
+                                            threads % 32 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int4* o = reinterpret_cast<const int4*>(occ);
   int rc = 0;
   if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
   if (sync) {
-    void* args[] = {&o, &nblocks, &chains, &hops, &sync, &p0, &out};
-    rc = (int)cudaLaunchCooperativeKernel((void*)gather_chase_kernel, blocks,
-                                          threads, args, 0, s);
+    void* args[] = {&o, &nblocks, &chains, &hops, &p0, &out, &slots};
+    rc = (int)cudaLaunchCooperativeKernel(
+        sync == 1   ? (void*)gather_chase_kernel<1>
+        : sync == 2 ? (void*)gather_chase_kernel<2>
+                    : (void*)gather_chase_kernel<3>,
+        blocks, threads, args, 0, s);
   } else {
-    gather_chase_kernel<<<blocks, threads, 0, s>>>(o, nblocks, chains, hops,
-                                                   sync, p0, out);
+    gather_chase_kernel<0><<<blocks, threads, 0, s>>>(o, nblocks, chains,
+                                                      hops, p0, out, slots);
   }
   if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
   if (rc) return rc;

@@ -12,6 +12,7 @@
 // builds with -ffp-contract=off, so that no multiply and add fuse into
 // one rounding, as on the card. The port's CPU path never calls it; it
 // runs the plain PyTorch versions.
+#include <algorithm>
 #include <array>
 #include <cstddef>
 #include <type_traits>
@@ -480,10 +481,8 @@ extern "C" int fgdp_vpu_ceiling_host(const void* x, void* out, long long n,
 // The seeding wave machines' grid with every lane in one thread: the
 // counts are the thread's own, and no thread comes before it.
 struct SerialGrid {
-  void sum4(const int loc[4], int tot[4]) const {
-    for (int t = 0; t < 4; ++t) tot[t] = loc[t];
-  }
-  int exscan(int) const { return 0; }
+  ModeCounts counts(const ModeCounts& loc, int) const { return loc; }
+  int exscan(int, int) const { return 0; }
 };
 
 static FmView fm_view(const int* occ, long long nblocks, const int* counts,
@@ -523,22 +522,111 @@ extern "C" int fgdp_fm_host(FM_HOST_ARGS, int n, const int* k, const int* l,
   return 0;
 }
 
-// K1 (fgdp_smem_lcp's arguments but the launch's scratch and stream)
+// K1's step with each WALK step logged (8 ints: read, len, l before,
+// the position compared from, then l, r, mode and pos after), for the
+// tests' coverage of the packed compare's edges
+template <class Rows>
+struct LoggedStep {
+  LcpStep<Rows> inner;
+  std::vector<int>* log;
+  void operator()(LcpLane& st, int mode) const {
+    if (mode != SEED_WALK) return inner(st, mode);
+    const int pos = st.pos < 0 ? fm_sa_lookup(inner.A.fm, st.lo) : st.pos;
+    const int id = st.id, len = st.len, l = st.l;
+    inner(st, mode);
+    log->insert(log->end(), {id, len, l, pos, st.l, st.r, st.mode, st.pos});
+  }
+};
+
+// K1 (fgdp_smem_lcp's arguments but the block size, the launch's
+// scratch and stream; `staged`: 1 reads the codes from every read's
+// staged words, lcp_stage_word's, 0 where they lie; walk_log int32[cap,
+// 8] receives LoggedStep's rows, or null). Returns the WALK steps taken.
 extern "C" int fgdp_smem_lcp_host(
     FM_HOST_ARGS, const int* tree, const int* isa, const int* codes,
     const int* lens, const unsigned char* active, const long long* words,
     long long nwords, int B, int L, int N, int l2ref, int msl, int S,
     int max_rounds, int* out_m, int* out_n, int* out_k, int* out_s,
-    int* count, unsigned char* overflow) {
+    int* count, unsigned char* overflow, int staged, int* walk_log,
+    int cap) {
   const LcpArgs A{FM_VIEW, tree, isa, codes, lens, active, words, nwords,
                   B, L, N, l2ref, msl,
                   SeedRows{out_m, out_n, out_k, out_s, S}, count, overflow,
                   nullptr};
   std::vector<LcpLane> ln(B);
   for (int i = 0; i < B; ++i) lcp_lane_init(A, ln[i], i);
+  int kc[20];
+  for (int t = 0; t < 4; ++t) kc[t] = counts[t];
+  for (int t = 0; t < 16; ++t) kc[4 + t] = c2[t];
   SerialGrid g;
-  lcp_machine(A, g, ln, max_rounds);
+  std::vector<int> log;
+  const int nw = (L + 31) / 32;
+  std::vector<LcpWord> rows((size_t)B * nw + 1);
+  for (int i = 0; staged && i < B; ++i)
+    for (int w = 0; w < nw; ++w)
+      rows[(size_t)i * nw + w] = lcp_stage_word(A, i, w);
+  const LcpStaged st_rows{rows.data(), nw, 0, kc};
+  const LcpInPlace ip_rows{kc};
+  if (staged)
+    lcp_machine(A, g, ln, max_rounds,
+                LoggedStep<LcpStaged>{{A, st_rows}, &log});
+  else
+    lcp_machine(A, g, ln, max_rounds,
+                LoggedStep<LcpInPlace>{{A, ip_rows}, &log});
   for (int i = 0; i < B; ++i) lcp_lane_finish(A, ln[i]);
+  const int steps = (int)(log.size() / 8);
+  for (int i = 0; walk_log != nullptr && i < 8 * std::min(steps, cap); ++i)
+    walk_log[i] = log[i];
+  return steps;
+}
+
+// One WALK step of n lanes, lane i on read row i of codes int32[n, L]
+// (its len, l, r, lo, hi, pos from the arrays), staged or in place;
+// state int32[n, 8] receives l, r, lo, hi, pos, mode, cnt and the bytes
+// gathered, the seed rows int32[n, S] and count int32[n] its seed.
+extern "C" int fgdp_lcp_walk_host(
+    FM_HOST_ARGS, const int* isa, const int* codes, const int* lens,
+    const long long* words, long long nwords, int n, int L, int N,
+    int l2ref, int msl, int S, const int* l, const int* r, const int* lo,
+    const int* hi, const int* pos, int* state, int* out_m, int* out_n,
+    int* out_k, int* out_s, int* count, int staged) {
+  std::vector<unsigned char> active(n, 1), ovf(n, 0);
+  const LcpArgs A{FM_VIEW, nullptr, isa, codes, lens, active.data(), words,
+                  nwords, n, L, N, l2ref, msl,
+                  SeedRows{out_m, out_n, out_k, out_s, S}, count,
+                  ovf.data(), nullptr};
+  int kc[20] = {0};
+  const int nw = (L + 31) / 32;
+  std::vector<LcpWord> rows((size_t)n * nw + 1);
+  for (int i = 0; i < n; ++i)
+    for (int w = 0; w < nw; ++w)
+      rows[(size_t)i * nw + w] = lcp_stage_word(A, i, w);
+  const LcpStaged st_rows{rows.data(), nw, 0, kc};
+  const LcpInPlace ip_rows{kc};
+  for (int i = 0; i < n; ++i) {
+    LcpLane st;
+    lcp_lane_init(A, st, i);
+    st.l = l[i];
+    st.r = r[i];
+    st.lo = lo[i];
+    st.hi = hi[i];
+    st.pos = pos[i];
+    st.mode = SEED_WALK;
+    if (staged)
+      lcp_walk(A, st_rows, st);
+    else
+      lcp_walk(A, ip_rows, st);
+    int* o = state + 8LL * i;
+    o[0] = st.l;
+    o[1] = st.r;
+    o[2] = st.lo;
+    o[3] = st.hi;
+    o[4] = st.pos;
+    o[5] = st.mode;
+    o[6] = st.cnt;
+    o[7] = st.gb;
+    count[i] = st.cnt;
+  }
   return 0;
 }
 

@@ -14,8 +14,9 @@
 // k2_scale lanes, R a thread as in smem_lcp.cu). A thread first runs its
 // lane's ascents and forward extension to their own ends (no barrier:
 // they are independent per lane), then the backward pass under the same
-// wave test as K1 (CoopGrid: one grid barrier a step), appending to the
-// lane's LaneSeeds row of sj_cap slots.
+// wave test as K1 (GridBar, seed_waves.cuh: the counts ride on one
+// hand-written grid barrier a step), appending to the lane's LaneSeeds
+// row of sj_cap slots.
 //
 // What bounds it: the slowest lane's serial chain (up to ascent_cap tree
 // steps of two 16-byte rows each way, forward steps of two 96-byte occ
@@ -31,8 +32,9 @@
 
 template <int R>
 __global__ void __launch_bounds__(K2_THREADS)
-    k2_lcp_kernel(K2Args A, int max_rounds, int* sets, int* blk) {
-  CoopGrid g{sets, blk, 0};
+    k2_lcp_kernel(K2Args A, int max_rounds, unsigned long long* slots,
+                  int* blk, int narrow) {
+  GridBar g{slots, blk, nullptr, narrow != 0};
   LaneArray<K2Lane, R> ln;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   for (int i = 0; i < R; ++i) k2_lane_init(A, ln[i], t * R + i);
@@ -42,12 +44,13 @@ __global__ void __launch_bounds__(K2_THREADS)
 }
 
 template <int R>
-static int launch(K2Args& A, int max_rounds, int* sets, int* blk,
-                  cudaStream_t s) {
+static int launch(K2Args& A, int max_rounds, unsigned long long* slots,
+                  int* blk, cudaStream_t s) {
   int blocks = 0;
   const int rc = coop_blocks(k2_lcp_kernel<R>, K2_THREADS, A.NK, R, &blocks);
   if (rc) return rc;
-  void* args[] = {&A, &max_rounds, &sets, &blk};
+  int narrow = (A.NK < SEED_NARROW_LANES && blocks < (1 << 13)) ? 1 : 0;
+  void* args[] = {&A, &max_rounds, &slots, &blk, &narrow};
   return (int)cudaLaunchCooperativeKernel((void*)k2_lcp_kernel<R>, blocks,
                                           K2_THREADS, args, 0, s);
 }
@@ -79,9 +82,10 @@ extern "C" int fgdp_k2_lcp_max_blocks(int NK) {
 // int32[B, L], lens int32[B]; k_read, job_x, job_mi, job_pos, job_d0
 // int32[NK], k_on bool[NK]; out_m/n/k/s int32[NK, sj_cap] zeroed, count
 // int32[NK], overflow bool[NK] (the lane's seeds, either ascent's step
-// cap, or a backward pass still live at max_rounds); sets int32[12]
-// zeroed, blk int32[fgdp_k2_lcp_max_blocks(NK)]; work, the events and
-// the return code as fgdp_smem_lcp's.
+// cap, or a backward pass still live at max_rounds); slots int64[6]
+// zeroed, blk int32[fgdp_k2_lcp_max_blocks(NK)]; work int64[4] or null;
+// the events and the return code as fgdp_smem_lcp's (NK above
+// SEED_MAX_LANES is cudaErrorInvalidValue).
 extern "C" int fgdp_k2_lcp(
     const int* occ, long long nblocks, const int* counts, const int* c2,
     const int* sa, long long sa_len, int sentinel_row, int r1_row,
@@ -90,9 +94,10 @@ extern "C" int fgdp_k2_lcp(
     const int* job_pos, const int* job_d0, const unsigned char* k_on, int NK,
     int L, int N, int l2ref, int msl, int sj_cap, int ascent_cap,
     int max_rounds, int* out_m, int* out_n, int* out_k, int* out_s,
-    int* count, unsigned char* overflow, int* sets, int* blk,
+    int* count, unsigned char* overflow, unsigned long long* slots, int* blk,
     long long* work, void* ev_start, void* ev_end, void* stream) {
-  if (NK < 0 || L < 0 || N < 1 || sj_cap < 0 || nblocks < 1 || sa_len < 1)
+  if (NK < 0 || NK > SEED_MAX_LANES || L < 0 || N < 1 || sj_cap < 0 ||
+      nblocks < 1 || sa_len < 1)
     return (int)cudaErrorInvalidValue;
   K2Args A{FmView{occ, nblocks, counts, c2, sa, sa_len, sentinel_row,
                   r1_row, cc_r0, cc_r1},
@@ -108,11 +113,11 @@ extern "C" int fgdp_k2_lcp(
   int rc = 0;
   if (NK > 0) {
     if (R == 1)
-      rc = launch<1>(A, max_rounds, sets, blk, s);
+      rc = launch<1>(A, max_rounds, slots, blk, s);
     else if (R == 4)
-      rc = launch<4>(A, max_rounds, sets, blk, s);
+      rc = launch<4>(A, max_rounds, slots, blk, s);
     else
-      rc = launch<16>(A, max_rounds, sets, blk, s);
+      rc = launch<16>(A, max_rounds, slots, blk, s);
   }
   if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
   if (rc) return rc;

@@ -226,9 +226,9 @@ struct K2Step {
 template <class Grid, class Lanes>
 FGDP_HD void k2_machine(const K2Args& A, Grid& g, Lanes& ln,
                         int max_rounds) {
-  const int waves[2] = {SEED_EXT, SEED_SHR};
   K2Step step{A};
-  seed_wave_phase(g, ln, max_rounds, waves, 2, step);
+  seed_wave_phase<SEED_EXT, SEED_SHR>(g, ln, max_rounds, step,
+                                      SEED_B_START);
 }
 
 FGDP_HD void k2_lane_finish(const K2Args& A, const K2Lane& st) {

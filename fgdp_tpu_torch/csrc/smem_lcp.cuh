@@ -14,7 +14,9 @@
 //         reference's packed words (pos from SA at the walk's first
 //         step); its seed carries the direct encoding k = -pos - 2; a
 //         mismatch re-enters the row space at isa[pos] and goes to SHR,
-//         a read N restarts left of it
+//         a read N restarts left of it. The 64 compares are one packed
+//         compare of two 128-bit windows (lcp_walk below), not a loop
+//         that stops at the first mismatch
 //   SHR   ascends to the parent node (the deeper endpoint's tree row)
 //         and goes back to EXT when the node can be prepended with
 //         q[l-1], or at the root (d == 0), whose empty match skips it
@@ -43,7 +45,7 @@ struct LcpArgs {
   SeedRows out;                 // int32[B, S] each
   int* count;                   // int32[B]
   unsigned char* overflow;      // bool[B]
-  long long* work;              // int64[4] (seed_waves.cuh) or null
+  long long* work;              // int64[4 + 2 SEED_BUCKETS] or null
 };
 
 struct LcpLane {
@@ -55,26 +57,156 @@ struct LcpLane {
   int gb, steps;   // bytes gathered, steps taken (the work counters)
 };
 
-// read character of the WALK window: N and positions outside [0, len)
-// are 4 (pack_reads + read_window; a position at or past L packs as 0)
-FGDP_HD int lcp_read_win(const LcpArgs& A, const LcpLane& st, int p) {
-  if (p < 0 || p >= st.len) return 4;
-  if (p >= A.L) return 0;
-  const int c = fgdp_ld(A.codes + (long long)st.id * A.L + p);
-  return (c < 0 || c >= 4) ? 4 : c;
+typedef unsigned long long lcp_u64;
+
+#define LCP_EVEN 0x5555555555555555ull
+
+// 32 positions of a staged read: the 2-bit codes (position 32 w + j at
+// bits 2j, 2j + 1) and the N mask (bit 2j set where position 32 w + j
+// reads 4 in the WALK window)
+struct alignas(16) LcpWord {
+  lcp_u64 c, n;
+};
+
+// the staged form of code c at a position inside [0, L): N where c is
+// outside [0, 4); the 2-bit field of an N tells EXT's two kinds apart
+// (1: c >= 4, which EXT reads as 4; 0: c < 0, which EXT clamps to 0)
+FGDP_HD void lcp_stage_code(int c, int& code, int& n) {
+  n = (c < 0 || c >= 4) ? 1 : 0;
+  code = c >= 4 ? 1 : (c < 0 ? 0 : c);
 }
 
-// text character at doubled-space position p, 4 outside [0, l2ref)
-// (packed_window)
-FGDP_HD int lcp_text_at(const LcpArgs& A, int p) {
-  if (p < 0 || p >= A.l2ref) return 4;
-  const long long w = fm_clampll((long long)(p >> 4), A.nwords - 1);
+// word w of read `id`'s staged row (positions at or past L: code 0, no N)
+FGDP_HD LcpWord lcp_stage_word(const LcpArgs& A, int id, int w) {
+  LcpWord o{0, 0};
+  for (int j = 0; j < 32; ++j) {
+    const int p = 32 * w + j;
+    if (p >= A.L) break;
+    int code, n;
+    lcp_stage_code(fgdp_ld(A.codes + (long long)id * A.L + p), code, n);
+    o.c |= (lcp_u64)code << (2 * j);
+    o.n |= (lcp_u64)n << (2 * j);
+  }
+  return o;
+}
+
+// the 64 bits of (lo, hi) from bit sh (0..63) on: bits [sh, sh + 64) of
+// the 128-bit value hi:lo
+FGDP_HD lcp_u64 lcp_funnel(lcp_u64 lo, lcp_u64 hi, int sh) {
+  return sh ? (lo >> sh) | (hi << (64 - sh)) : lo;
+}
+
+// the even bits of the slots below k (k clamped to [0, 64]) of a 64-slot
+// window, as (slots 0-31, slots 32-63)
+FGDP_HD void lcp_slots_below(long long k, lcp_u64 m[2]) {
+  const int a = k < 0 ? 0 : (k > 64 ? 64 : (int)k);
+  m[0] = a >= 32 ? LCP_EVEN : (LCP_EVEN & ((1ull << (2 * a)) - 1));
+  m[1] = a <= 32 ? 0
+                 : (a >= 64 ? LCP_EVEN
+                            : (LCP_EVEN & ((1ull << (2 * (a - 32))) - 1)));
+}
+
+// the slots of the window [start, start + 64) whose position lies
+// outside [0, end)
+FGDP_HD void lcp_slots_outside(long long start, long long end,
+                               lcp_u64 m[2]) {
+  lcp_u64 below[2], inside[2];
+  lcp_slots_below(-start, below);
+  lcp_slots_below(end - start, inside);
+  m[0] = below[0] | (LCP_EVEN & ~inside[0]);
+  m[1] = below[1] | (LCP_EVEN & ~inside[1]);
+}
+
+// Read codes from the staged rows (shared memory on the card): `base`
+// holds nw words a read, read `id` at row id - first.
+struct LcpStaged {
+  const LcpWord* base;
+  int nw, first;
+  const int* kc;   // C (4) then C2 (16): fm_backward_extend2's tables
+
+  FGDP_HD const LcpWord* row(const LcpLane& st) const {
+    return base + (long long)(st.id - first) * nw;
+  }
+
+  FGDP_HD LcpWord word(const LcpWord* rw, int w) const {
+    return (w >= 0 && w < nw) ? rw[w] : LcpWord{0, 0};
+  }
+
+  // EXT's and SHR's code at p: seed_read_at's value, but a code below 0
+  // as 0 (every use tests "< 4" or clamps to 0..3)
+  FGDP_HD int at(const LcpArgs& A, const LcpLane& st, int p) const {
+    if (p < 0 || p >= A.L) return 4;
+    const LcpWord v = row(st)[p >> 5];
+    const int sh = 2 * (p & 31);
+    const int code = (int)((v.c >> sh) & 3u);
+    return ((v.n >> sh) & 1u) ? (code ? 4 : 0) : code;
+  }
+
+  // the WALK window [start, start + 64): codes and N masks, slot i =
+  // position start + i (positions below 0 or past the row: code 0)
+  FGDP_HD void window(const LcpArgs&, const LcpLane& st, int start,
+                      lcp_u64 c[2], lcp_u64 n[2]) const {
+    const LcpWord* rw = row(st);
+    const int w0 = start >> 5, sh = 2 * (start & 31);
+    const LcpWord a = word(rw, w0), b = word(rw, w0 + 1),
+                  d = word(rw, w0 + 2);
+    c[0] = lcp_funnel(a.c, b.c, sh);
+    c[1] = lcp_funnel(b.c, d.c, sh);
+    n[0] = lcp_funnel(a.n, b.n, sh);
+    n[1] = lcp_funnel(b.n, d.n, sh);
+  }
+};
+
+// Read codes where they lie (int32[B, L] in global memory), for rows
+// longer than the staged rows' shared memory holds.
+struct LcpInPlace {
+  const int* kc;
+
+  FGDP_HD int at(const LcpArgs& A, const LcpLane& st, int p) const {
+    return seed_read_at(A.codes, A.L, st.id, p);
+  }
+
+  FGDP_HD void window(const LcpArgs& A, const LcpLane& st, int start,
+                      lcp_u64 c[2], lcp_u64 n[2]) const {
+    const int* q = A.codes + (long long)st.id * A.L;
+    c[0] = c[1] = n[0] = n[1] = 0;
+    // four rounds of 16 loads in flight (64 at once cost registers)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lcp_u64 ch = 0, nh = 0;
+#pragma unroll 16
+      for (int i = 0; i < 32; ++i) {
+        const int p = start + 32 * h + i;
+        int code = 0, nb = 0;
+        if (p >= 0 && p < A.L) lcp_stage_code(fgdp_ld(q + p), code, nb);
+        ch |= (lcp_u64)(nb ? 0 : code) << (2 * i);
+        nh |= (lcp_u64)nb << (2 * i);
+      }
+      c[h] = ch;
+      n[h] = nh;
+    }
+  }
+};
+
+// the text's codes at [start, start + 64) (slot i = position start + i)
+// from the five packed words that cover them, each index clamped to the
+// table as packed_window's gather is
+FGDP_HD void lcp_text_window(const LcpArgs& A, int start, lcp_u64 t[2]) {
+  const long long w0 = (long long)(start >> 4);
+  lcp_u64 v[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const long long w = fm_clampll(w0 + k, A.nwords - 1);
 #ifdef __CUDA_ARCH__
-  const unsigned word = (unsigned)__ldg(A.words + w);
+    v[k] = (unsigned)__ldg(A.words + w);
 #else
-  const unsigned word = (unsigned)A.words[w];
+    v[k] = (unsigned)A.words[w];
 #endif
-  return (int)((word >> (2 * (p & 15))) & 3u);
+  }
+  const int sh = 2 * (start & 15);
+  const lcp_u64 a = v[0] | (v[1] << 32), b = v[2] | (v[3] << 32);
+  t[0] = lcp_funnel(a, b, sh);
+  t[1] = lcp_funnel(b, v[4], sh);
 }
 
 FGDP_HD void lcp_lane_init(const LcpArgs& A, LcpLane& st, int id) {
@@ -93,15 +225,17 @@ FGDP_HD void lcp_lane_init(const LcpArgs& A, LcpLane& st, int id) {
   st.gb = st.steps = 0;
 }
 
-FGDP_HD void lcp_ext(const LcpArgs& A, LcpLane& st) {
+template <class Rows>
+FGDP_HD void lcp_ext(const LcpArgs& A, const Rows& rows, LcpLane& st) {
   const int l = st.l, r = st.r, lo = st.lo, hi = st.hi, s = hi - lo;
   const bool at_end = l == 0;
-  const int a = seed_read_at(A.codes, A.L, st.id, l - 1);
-  const int b = seed_read_at(A.codes, A.L, st.id, l - 2);
+  const int a = rows.at(A, st, l - 1);
+  const int b = rows.at(A, st, l - 2);
   const bool va = a < 4;
   int k1 = 0, s1 = 0, k2 = 0, s2 = 0;
   if (!at_end && va) {
-    fm_backward_extend2(A.fm, lo, s, a, b, k1, s1, k2, s2);
+    fm_backward_extend2(A.fm, rows.kc, rows.kc + 4, lo, s, a, b, k1, s1,
+                        k2, s2);
     st.gb += 48;   // two rows' counts and packed words
   }
   ++st.steps;
@@ -147,19 +281,46 @@ FGDP_HD void lcp_ext(const LcpArgs& A, LcpLane& st) {
   if (to_walk) st.pos = -1;
 }
 
-FGDP_HD void lcp_walk(const LcpArgs& A, LcpLane& st) {
+// index of the highest set bit of x != 0
+FGDP_HD int lcp_top_bit(lcp_u64 x) {
+#ifdef __CUDA_ARCH__
+  return 63 - __clzll((long long)x);
+#else
+  return 63 - __builtin_clzll(x);
+#endif
+}
+
+// One WALK step: the first j < 64 where q[l-1-j] and text[pos-1-j]
+// differ or either is 4 is the highest bad slot of the windows
+// [l - 64, l) and [pos - 64, pos) (slot i is j = 63 - i): mismatches by
+// an XOR of the 2-bit codes, read N, read positions outside [0, len) and
+// text positions outside [0, l2ref) ORed in.
+template <class Rows>
+FGDP_HD void lcp_walk(const LcpArgs& A, const Rows& rows, LcpLane& st) {
   const int l = st.l, r = st.r;
   const int pos = st.pos < 0 ? fm_sa_lookup(A.fm, st.lo) : st.pos;
   if (st.pos < 0) st.gb += 4;
-  int d = LCP_WALK_T, rb_d = 0;
-  for (int j = 0; j < LCP_WALK_T; ++j) {
-    const int rb = lcp_read_win(A, st, l - 1 - j);
-    const int tb = lcp_text_at(A, pos - 1 - j);
-    if (!(rb == tb && rb < 4 && tb < 4)) {
-      d = j;
-      rb_d = rb;
-      break;
-    }
+  lcp_u64 rc[2], rn[2], tc[2], rout[2], tout[2];
+  rows.window(A, st, l - LCP_WALK_T, rc, rn);
+  lcp_text_window(A, pos - LCP_WALK_T, tc);
+  lcp_slots_outside((long long)l - LCP_WALK_T, st.len, rout);
+  lcp_slots_outside((long long)pos - LCP_WALK_T, A.l2ref, tout);
+  lcp_u64 rbad[2], bad[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const lcp_u64 x = rc[h] ^ tc[h];
+    rbad[h] = rn[h] | rout[h];
+    bad[h] = ((x | (x >> 1)) & LCP_EVEN) | rbad[h] | tout[h];
+  }
+  // the highest bad slot; d = 64 when none (selects, not a run-time
+  // index, keep the halves in registers)
+  int d = LCP_WALK_T;
+  bool rb_bad = false;
+  if (bad[1] | bad[0]) {
+    const bool h = bad[1] != 0;
+    const int bit = lcp_top_bit(h ? bad[1] : bad[0]);
+    d = LCP_WALK_T - 1 - ((h ? 32 : 0) + (bit >> 1));
+    rb_bad = (((h ? rbad[1] : rbad[0]) >> bit) & 1u) != 0;
   }
   const int l2 = l - d, pos2 = pos - d;
   const bool stop = d < LCP_WALK_T;
@@ -168,8 +329,8 @@ FGDP_HD void lcp_walk(const LcpArgs& A, LcpLane& st) {
   st.gb += 8 * (((pos - 1) >> 4) - (last >> 4) + 1);
   ++st.steps;
   const bool at_start = stop && l2 == 0;
-  const bool badchar = stop && !at_start && rb_d >= 4;   // N at l2 - 1
-  const bool mism = stop && !at_start && !badchar;   // mismatch, text end
+  const bool badchar = stop && !at_start && rb_bad;   // N at l2 - 1
+  const bool mism = stop && !at_start && !badchar;    // mismatch, text end
   if (stop && r - l2 >= A.msl)
     seed_append(A.out, st.id, st.cnt, st.ovf, l2, r - 1, -pos2 - 2, 1);
   st.l = badchar ? l2 - 1 : l2;
@@ -191,13 +352,14 @@ FGDP_HD void lcp_walk(const LcpArgs& A, LcpLane& st) {
   st.pos = stop ? -1 : pos2;
 }
 
-FGDP_HD void lcp_shr(const LcpArgs& A, LcpLane& st) {
+template <class Rows>
+FGDP_HD void lcp_shr(const LcpArgs& A, const Rows& rows, LcpLane& st) {
   int e[4];
   seed_tree_parent(A.tree, A.N, st.lo, st.hi, e);
   st.gb += 32;
   ++st.steps;
   const int d = fgdp_max(e[0], 0);
-  const int a = seed_read_at(A.codes, A.L, st.id, st.l - 1);
+  const int a = rows.at(A, st, st.l - 1);
   const bool can = ((e[3] >> fm_clamp3(a)) & 1) == 1;
   st.lo = e[1];
   st.hi = e[2];
@@ -207,46 +369,55 @@ FGDP_HD void lcp_shr(const LcpArgs& A, LcpLane& st) {
   if (can || d == 0) st.mode = SEED_EXT;
 }
 
+template <class Rows>
 struct LcpStep {
   const LcpArgs& A;
+  const Rows& rows;
   FGDP_HD void operator()(LcpLane& st, int mode) const {
     if (mode == SEED_EXT)
-      lcp_ext(A, st);
+      lcp_ext(A, rows, st);
     else if (mode == SEED_WALK)
-      lcp_walk(A, st);
+      lcp_walk(A, rows, st);
     else
-      lcp_shr(A, st);
+      lcp_shr(A, rows, st);
   }
 };
 
-// The whole K1 machine over a thread's lanes (the lanes initialised by
-// lcp_lane_init); `g` takes the counts over every thread's lanes.
+// The cascade's compaction before level `level` (1, 2): the first NC
+// live lanes in lane order stay kept, the other live lanes drop.
 template <class Grid, class Lanes>
-FGDP_HD void lcp_machine(const LcpArgs& A, Grid& g, Lanes& ln,
-                         int max_rounds) {
-  const int waves[3] = {SEED_EXT, SEED_WALK, SEED_SHR};
-  LcpStep step{A};
-  seed_wave_phase(g, ln, 10, waves, 3, step);
-  const int caps[2] = {14, max_rounds};
-  for (int level = 1; level <= 2; ++level) {
-    const int NC = fgdp_max(A.B >> (2 * level - 1), 8);
-    if (A.B <= NC) {
-      for (int i = 0; i < (int)ln.size(); ++i) ln[i].kept = ln[i].id >= 0;
-    } else {
-      // stable compaction: the first NC live lanes in lane order
-      int mine = 0;
-      for (int i = 0; i < (int)ln.size(); ++i)
-        mine += ln[i].mode != SEED_DEAD;
-      int rank = g.exscan(mine);
-      for (int i = 0; i < (int)ln.size(); ++i) {
-        const bool live = ln[i].mode != SEED_DEAD;
-        ln[i].kept = live && rank < NC;
-        if (live && rank >= NC) ln[i].dropped = true;
-        rank += live;
-      }
-    }
-    seed_wave_phase(g, ln, caps[level - 1], waves, 3, step);
+FGDP_HD void lcp_compact(const LcpArgs& A, Grid& g, Lanes& ln, int level) {
+  const int NC = fgdp_max(A.B >> (2 * level - 1), 8);
+  if (A.B <= NC) {
+    for (int i = 0; i < (int)ln.size(); ++i) ln[i].kept = ln[i].id >= 0;
+    return;
   }
+  // stable compaction: a prefix sum of the live flags
+  int mine = 0;
+  for (int i = 0; i < (int)ln.size(); ++i) mine += ln[i].mode != SEED_DEAD;
+  int rank = g.exscan(mine, SEED_B_CASCADE + level - 1);
+  for (int i = 0; i < (int)ln.size(); ++i) {
+    const bool live = ln[i].mode != SEED_DEAD;
+    ln[i].kept = live && rank < NC;
+    if (live && rank >= NC) ln[i].dropped = true;
+    rank += live;
+  }
+}
+
+// The whole K1 machine over a thread's lanes (the lanes initialised by
+// lcp_lane_init); `g` takes the counts over every thread's lanes, `step`
+// advances a lane (LcpStep).
+template <class Grid, class Lanes, class Step>
+FGDP_HD void lcp_machine(const LcpArgs& A, Grid& g, Lanes& ln,
+                         int max_rounds, Step step) {
+  seed_wave_phase<SEED_EXT, SEED_WALK, SEED_SHR>(g, ln, 10, step,
+                                                 SEED_B_START);
+  lcp_compact(A, g, ln, 1);
+  seed_wave_phase<SEED_EXT, SEED_WALK, SEED_SHR>(g, ln, 14, step,
+                                                 SEED_B_CASCADE);
+  lcp_compact(A, g, ln, 2);
+  seed_wave_phase<SEED_EXT, SEED_WALK, SEED_SHR>(g, ln, max_rounds, step,
+                                                 SEED_B_CASCADE + 1);
 }
 
 FGDP_HD void lcp_lane_finish(const LcpArgs& A, const LcpLane& st) {

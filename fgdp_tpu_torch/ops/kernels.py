@@ -71,12 +71,15 @@ _SIGS = {
     "fgdp_vpu_ceiling": [_P, _P, _LL] + [_I] * 3 + [_P] * 6 + [_P],
     "fgdp_vpu_ceiling_host": [_P, _P, _LL] + [_I] * 3 + [_P] * 6,
     "fgdp_gather_rows": [_P] * 3 + [_LL] + [_I] * 2 + [_P],
-    "fgdp_gather_chase": [_P, _LL] + [_I] * 5 + [_LL] + [_P] * 4,
+    "fgdp_gather_chase": [_P, _LL] + [_I] * 5 + [_LL] + [_P] * 5,
     "fgdp_smem_lcp": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6
     + [_P] * 3 + [_P] * 3,
-    "fgdp_smem_lcp_host": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6,
+    "fgdp_smem_lcp_host": _FM + [_P] * 6 + [_LL] + [_I] * 7 + [_P] * 6
+    + [_I, _P, _I],
+    "fgdp_lcp_walk_host": _FM + [_P] * 4 + [_LL] + [_I] * 6 + [_P] * 11
+    + [_I],
     "fgdp_smem_lcp_max_blocks": [_I],
-    "fgdp_smem_lcp_grid": [_I, _P],
+    "fgdp_smem_lcp_plan": [_I] * 2 + [_P],
     "fgdp_k2_lcp": _FM + [_P] * 10 + [_I] * 8 + [_P] * 6 + [_P] * 3
     + [_P] * 3,
     "fgdp_k2_lcp_host": _FM + [_P] * 10 + [_I] * 8 + [_P] * 6,
@@ -200,14 +203,15 @@ def tensor_arg(x, dev, dtype, what: str):
     return x.to(dtype).contiguous()
 
 
-def work_ptr(work, dev, what: str):
-    """The address of a seeding kernel's work counters (a zeroed int64[4]
-    on `dev`, csrc/seed_waves.cuh), or None when not asked for."""
+def work_ptr(work, dev, what: str, n: int = 4):
+    """The address of a seeding kernel's work counters (a zeroed
+    int64[n] on `dev`, csrc/seed_waves.cuh), or None when not asked
+    for."""
     if work is None:
         return None
     if work.device != dev or work.dtype != torch.int64 or \
-            work.shape != (4,):
-        raise ValueError(f"{what}: work must be int64[4] on {dev}")
+            work.shape != (n,):
+        raise ValueError(f"{what}: work must be int64[{n}] on {dev}")
     return work.data_ptr()
 
 

@@ -135,7 +135,7 @@ def k2_reseed_lcp_kernel(fm, tree, isa, codes, lens, k_read, job_x,
     count = torch.empty(NK, dtype=_I32, device=dev)
     lane_ovf = torch.empty(NK, dtype=torch.bool, device=dev)
     lib = kernels.load("k2_lcp")
-    sets = torch.zeros(12, dtype=_I32, device=dev)
+    slots = torch.zeros(6, dtype=torch.int64, device=dev)
     blk = torch.empty(lib.fgdp_k2_lcp_max_blocks(NK), dtype=_I32,
                       device=dev)
     kernels.launch(
@@ -144,7 +144,7 @@ def k2_reseed_lcp_kernel(fm, tree, isa, codes, lens, k_read, job_x,
         *(x.data_ptr() for x in jobs), on_c.data_ptr(), NK, L,
         tree_c.shape[0] - 1, 2 * fm.n_ref, min_seed_len, sj_cap, ascent_cap,
         max_rounds, m.data_ptr(), n.data_ptr(), k.data_ptr(), s.data_ptr(),
-        count.data_ptr(), lane_ovf.data_ptr(), sets.data_ptr(),
+        count.data_ptr(), lane_ovf.data_ptr(), slots.data_ptr(),
         blk.data_ptr(), kernels.work_ptr(work, dev, what), device=dev)
     lanes_out = LaneSeeds(m=m, n=n, k=k, s=s, count=count, overflow=lane_ovf)
     return _merge(lanes_out, lane_ovf, k_read, k_on, B, max_seeds, into)

@@ -32,6 +32,9 @@ cannot make); a failing launch raises.
 
 from __future__ import annotations
 
+import ctypes
+from collections import namedtuple
+
 import torch
 
 from . import fm as fmops
@@ -68,18 +71,34 @@ def smem_all_lcp(fm: fmops.DeviceFMIndex, tree, isa, codes, lens, active,
               ref_codes16, max_rounds)
 
 
-def launch_grid(B: int, device):
-    """(blocks, threads) of smem_all_lcp_kernel's launch of B reads."""
+# the kernel's work counters: csrc/seed_waves.cuh's four, then the wave
+# split (ns, then grid steps, of each bucket: a step of a wave, the
+# cascade's levels, the launch's start)
+WAVE_BUCKETS = ("EXT", "WALK", "SHR", "cascade 1", "cascade 2", "start")
+WORK_LEN = 4 + 2 * len(WAVE_BUCKETS)
+
+LcpPlan = namedtuple("LcpPlan", "blocks threads lanes staged per_sm")
+
+
+def launch_plan(B: int, L: int, device) -> LcpPlan:
+    """The launch smem_all_lcp_kernel makes for B reads of L codes:
+    blocks, threads a block, lanes a thread, whether the rows are staged
+    in shared memory, and the blocks an SM holds; raises when the lanes
+    cannot all be resident."""
     lib = kernels.load("smem_lcp")
-    return kernels.coop_grid("smem_lcp", lib.fgdp_smem_lcp_grid, B, device)
+    plan = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        rc = lib.fgdp_smem_lcp_plan(B, L, ctypes.addressof(plan))
+    kernels.check(rc, "smem_lcp plan")
+    return LcpPlan(plan[0], plan[1], plan[2], bool(plan[3]), plan[4])
 
 
 def smem_all_lcp_kernel(fm, tree, isa, codes, lens, active,
                         min_seed_len: int, max_seeds: int, ref_codes16,
                         max_rounds: int = 24, work=None) -> SeedBatch:
     """Launch csrc/smem_lcp.cu on CUDA tensors; returns what
-    `smem_all_lcp_plain` returns. `work`, a zeroed int64[4] on the card,
-    receives the launch's work counters (csrc/seed_waves.cuh)."""
+    `smem_all_lcp_plain` returns. `work`, a zeroed int64[WORK_LEN] on the
+    card, receives the launch's work counters."""
     B, L = codes.shape
     dev = codes.device
     what = "smem_lcp kernel"
@@ -100,7 +119,7 @@ def smem_all_lcp_kernel(fm, tree, isa, codes, lens, active,
     count = torch.empty(B, dtype=_I32, device=dev)
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
     lib = kernels.load("smem_lcp")
-    sets = torch.zeros(12, dtype=_I32, device=dev)
+    slots = torch.zeros(6, dtype=torch.int64, device=dev)
     blk = torch.empty(lib.fgdp_smem_lcp_max_blocks(B), dtype=_I32,
                       device=dev)
     kernels.launch(
@@ -108,9 +127,10 @@ def smem_all_lcp_kernel(fm, tree, isa, codes, lens, active,
         isa_c.data_ptr(), codes_c.data_ptr(), lens_c.data_ptr(),
         act_c.data_ptr(), words.data_ptr(), words.shape[0], B, L,
         tree_c.shape[0] - 1, 2 * fm.n_ref, min_seed_len, max_seeds,
-        max_rounds, m.data_ptr(), n.data_ptr(), k.data_ptr(), s.data_ptr(),
-        count.data_ptr(), ovf.data_ptr(), sets.data_ptr(), blk.data_ptr(),
-        kernels.work_ptr(work, dev, what), device=dev)
+        max_rounds, m.data_ptr(), n.data_ptr(), k.data_ptr(),
+        s.data_ptr(), count.data_ptr(), ovf.data_ptr(), slots.data_ptr(),
+        blk.data_ptr(), kernels.work_ptr(work, dev, what, WORK_LEN),
+        device=dev)
     return SeedBatch(m=m, n=n, k=k, s=s, count=count, overflow=ovf)
 
 
@@ -256,44 +276,8 @@ def _lcp_phase(fm, tree, isa, codes, rpacked, ref_codes16, rid, lens_l,
                     mode=mode.to(_I32), seeds=seeds)
 
     def walk_body(st):
-        act = st["mode"] == MODE_WALK
-        l, r, lo = st["l"], st["r"], st["lo"]
-        pos = torch.where(act & (st["pos"] < 0),
-                          fmops.sa_lookup(fm, st["lo"]), st["pos"])
-        # compare q[l-1-j] vs text[pos-1-j], j = 0..WALK_T-1
-        rb = read_window(rpacked, rid, l - WALK_T, lens_l,
-                         WALK_T).flip(1)
-        tb = packed_window(ref_codes16, l2ref, pos - WALK_T, WALK_T,
-                           reverse=True)
-        okw = (rb == tb) & (rb < 4) & (tb < 4)
-        hasbad = (~okw).any(dim=1)
-        d = torch.where(hasbad, (~okw).to(torch.int8).argmax(dim=1),
-                        WALK_T).to(_I32)
-        l2 = l - d
-        pos2 = pos - d
-        stop = act & hasbad
-        at_start = stop & (l2 == 0)
-        rb_d = rb.gather(1, d.clamp(0, WALK_T - 1).long()[:, None])[:, 0]
-        badchar = stop & ~at_start & (rb_d >= 4)   # read N at q[l2-1]
-        mism = stop & ~at_start & ~badchar         # mismatch / text end
-        emit = stop & (r - l2 >= msl)
-        seeds = _append_seed(st["seeds"], emit, l2, r - 1, -pos2 - 2,
-                             torch.ones_like(l2))
-        # mism lanes re-enter row space at the single suffix's SA row
-        loI = isa[pos2.clamp(0, N - 1).long()]
-        new_l = torch.where(act, torch.where(badchar, l2 - 1, l2), l)
-        new_r = torch.where(badchar, l2 - 1, r)
-        new_lo = torch.where(mism, loI, torch.where(badchar, 0, lo))
-        new_hi = torch.where(mism, loI + 1,
-                             torch.where(badchar, N, st["hi"]))
-        mode = torch.where(at_start, MODE_DEAD,
-                           torch.where(mism, MODE_SHR,
-                                       torch.where(badchar, MODE_EXT,
-                                                   st["mode"])))
-        new_pos = torch.where(act, torch.where(stop, -1, pos2), st["pos"])
-        return dict(l=new_l.to(_I32), r=new_r.to(_I32),
-                    lo=new_lo.to(_I32), hi=new_hi.to(_I32),
-                    pos=new_pos.to(_I32), mode=mode.to(_I32), seeds=seeds)
+        return _walk_step(fm, isa, rpacked, ref_codes16, rid, lens_l, msl,
+                          N, l2ref, st)
 
     def shr_body(st):
         act = st["mode"] == MODE_SHR
@@ -332,3 +316,49 @@ def _lcp_phase(fm, tree, isa, codes, rpacked, ref_codes16, rid, lens_l,
         st = wave(st, MODE_WALK, walk_body)
         st = wave(st, MODE_SHR, shr_body)
     return st
+
+
+def _walk_step(fm, isa, rpacked, ref_codes16, rid, lens_l, msl, N, l2ref,
+               st):
+    """One WALK step of the lanes in MODE_WALK (the others keep their
+    state): the first of WALK_T characters where q[l-1-j] and
+    text[pos-1-j] differ or either is 4 (pos from SA at a walk's first
+    step) ends the walk."""
+    act = st["mode"] == MODE_WALK
+    l, r, lo = st["l"], st["r"], st["lo"]
+    pos = torch.where(act & (st["pos"] < 0),
+                      fmops.sa_lookup(fm, st["lo"]), st["pos"])
+    # compare q[l-1-j] vs text[pos-1-j], j = 0..WALK_T-1
+    rb = read_window(rpacked, rid, l - WALK_T, lens_l,
+                     WALK_T).flip(1)
+    tb = packed_window(ref_codes16, l2ref, pos - WALK_T, WALK_T,
+                       reverse=True)
+    okw = (rb == tb) & (rb < 4) & (tb < 4)
+    hasbad = (~okw).any(dim=1)
+    d = torch.where(hasbad, (~okw).to(torch.int8).argmax(dim=1),
+                    WALK_T).to(_I32)
+    l2 = l - d
+    pos2 = pos - d
+    stop = act & hasbad
+    at_start = stop & (l2 == 0)
+    rb_d = rb.gather(1, d.clamp(0, WALK_T - 1).long()[:, None])[:, 0]
+    badchar = stop & ~at_start & (rb_d >= 4)   # read N at q[l2-1]
+    mism = stop & ~at_start & ~badchar         # mismatch / text end
+    emit = stop & (r - l2 >= msl)
+    seeds = _append_seed(st["seeds"], emit, l2, r - 1, -pos2 - 2,
+                         torch.ones_like(l2))
+    # mism lanes re-enter row space at the single suffix's SA row
+    loI = isa[pos2.clamp(0, N - 1).long()]
+    new_l = torch.where(act, torch.where(badchar, l2 - 1, l2), l)
+    new_r = torch.where(badchar, l2 - 1, r)
+    new_lo = torch.where(mism, loI, torch.where(badchar, 0, lo))
+    new_hi = torch.where(mism, loI + 1,
+                         torch.where(badchar, N, st["hi"]))
+    mode = torch.where(at_start, MODE_DEAD,
+                       torch.where(mism, MODE_SHR,
+                                   torch.where(badchar, MODE_EXT,
+                                               st["mode"])))
+    new_pos = torch.where(act, torch.where(stop, -1, pos2), st["pos"])
+    return dict(l=new_l.to(_I32), r=new_r.to(_I32),
+                lo=new_lo.to(_I32), hi=new_hi.to(_I32),
+                pos=new_pos.to(_I32), mode=mode.to(_I32), seeds=seeds)

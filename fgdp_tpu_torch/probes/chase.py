@@ -7,9 +7,12 @@ checkpoint rows): each hop gathers two whole rows and takes the next pair
 from their sum, so every hop waits for the last. One chain alone gives
 the latency of a seeding step's gather; K3's serial bound is its longest
 read's gather steps times it. With `sync` every thread of a cooperative
-grid passes one grid barrier a hop; with no chain that times the barrier
+grid passes one grid barrier a hop, cooperative_groups' grid sync
+("coop") or the K1 and K2 kernels' own GridBar ("gridbar",
+csrc/seed_waves.cuh, in the form the kernels take at that grid; "wide",
+its two-word form at any grid); with no chain that times the barrier
 alone, and K1's and K2's serial bounds are their grid steps times the
-latency plus one barrier at their launch's grid.
+latency plus the cheapest of the barriers at their launch's grid.
 
     python -m fgdp_tpu_torch.probes.chase
 
@@ -28,6 +31,7 @@ from ..ops import kernels
 from . import card
 
 ROW = 24          # ints a checkpoint row
+BARRIERS = {"coop": 1, "gridbar": 2, "wide": 3}   # the kernel's sync modes
 HOPS = 2048       # hops of a timed lone chain
 NBLOCKS = 288_000  # rows of the scale index's table (4.6 Mb, both strands)
 
@@ -38,12 +42,12 @@ def _start(p0, n, nblocks):
 
 
 def chase_kernel(occ, chains: int, hops: int, p0: int = 0, blocks=None,
-                 threads: int = 32, sync: bool = False):
+                 threads: int = 32, sync=None):
     """Launch csrc/gather_chase.cu on a CUDA occ table int32[nblocks, 24]:
     `chains` chains (one a thread) of `hops` hops from row p0 + 7919 t,
     on `blocks` x `threads` (default: as few blocks as hold the chains),
-    cooperatively with a grid barrier a hop when `sync`. Returns
-    int32[chains, 2]: each chain's last sum and row."""
+    cooperatively with a grid barrier a hop when `sync` names one of
+    BARRIERS. Returns int32[chains, 2]: each chain's last sum and row."""
     if not occ.is_cuda or occ.dtype != torch.int32 or occ.dim() != 2 or \
             occ.shape[1] != ROW:
         raise ValueError("gather_chase kernel: occ must be int32[n, 24] "
@@ -54,10 +58,12 @@ def chase_kernel(occ, chains: int, hops: int, p0: int = 0, blocks=None,
     if blocks is None:
         blocks = max(-(-chains // threads), 1)
     out = torch.zeros((chains, 2), dtype=torch.int32, device=occ.device)
+    slots = torch.zeros(6, dtype=torch.int64, device=occ.device)
     lib = kernels.load("gather_chase")
     kernels.launch("gather_chase", lib.fgdp_gather_chase, occ.data_ptr(),
-                   occ.shape[0], chains, hops, blocks, threads, int(sync),
-                   p0, out.data_ptr(), device=occ.device)
+                   occ.shape[0], chains, hops, blocks, threads,
+                   BARRIERS[sync] if sync else 0, p0, out.data_ptr(),
+                   slots.data_ptr(), device=occ.device)
     return out
 
 
@@ -116,29 +122,31 @@ def latency_us(occ, hops: int = HOPS, p0: int = 12345):
     return 1e3 * cold / hops, 1e3 * warm / hops
 
 
-def barrier_us(occ, blocks: int, threads: int, hops: int = 1024):
-    """µs a grid barrier at a cooperative grid of blocks x threads (no
-    chain: the hops are barriers alone), the barrier-only launch less a
-    launch of no hops."""
+def barrier_us(occ, blocks: int, threads: int, hops: int = 1024,
+               sync: str = "coop"):
+    """µs a grid barrier (`sync`, one of BARRIERS) at a cooperative grid
+    of blocks x threads (no chain: the hops are barriers alone), the
+    barrier-only launch less a launch of no hops."""
     full = _kernel_ms(lambda: chase_kernel(occ, 0, hops, 0, blocks, threads,
-                                           sync=True))
+                                           sync=sync))
     none = _kernel_ms(lambda: chase_kernel(occ, 0, 0, 0, blocks, threads,
-                                           sync=True))
+                                           sync=sync))
     return 1e3 * (full - none) / hops
 
 
 def check(occ, chains: int = 64, hops: int = 64):
     """The kernel against the plain version, exactly: chains alone and
-    under a grid barrier a hop."""
+    under each grid barrier a hop."""
     want = chase_plain(occ, chains, hops, 77)
     got = chase_kernel(occ, chains, hops, 77)
     if not torch.equal(got, want):
         raise AssertionError("gather_chase differs from its plain version")
-    got = chase_kernel(occ, chains, hops, 77, blocks=4, threads=32,
-                       sync=True)
-    if not torch.equal(got, want):
-        raise AssertionError("gather_chase under grid barriers differs "
-                             "from its plain version")
+    for sync in BARRIERS:
+        got = chase_kernel(occ, chains, hops, 77, blocks=4, threads=32,
+                           sync=sync)
+        if not torch.equal(got, want):
+            raise AssertionError(f"gather_chase under {sync} grid barriers "
+                                 "differs from its plain version")
 
 
 def main():
@@ -154,8 +162,9 @@ def main():
     print(f"[chase] one chain alone, {HOPS} hops of two 96-byte rows: cold "
           f"{cold:.3f} us a hop, warm (L2) {warm:.3f} us a hop")
     for blocks in (64, 128):
-        print(f"[chase] grid barrier at {blocks} x 64 threads: "
-              f"{barrier_us(occ, blocks, 64):.3f} us")
+        print(f"[chase] grid barrier at {blocks} x 64 threads: " + ", ".join(
+            f"{sync} {barrier_us(occ, blocks, 64, sync=sync):.3f} us"
+            for sync in BARRIERS))
 
 
 if __name__ == "__main__":

@@ -1354,18 +1354,21 @@ def test_gather_rows_kernel_equals_plain(dev, depth):
 
 @pytest.mark.cuda
 def test_gather_chase_kernel_equals_plain(dev):
-    """The dependent-gather probe: chains alone and under a grid barrier a
-    hop equal the plain chase; the latency and the barrier are timed."""
+    """The dependent-gather probe: chains alone and under each grid
+    barrier a hop (cooperative_groups' and the seeding kernels' GridBar in
+    either form) equal the plain chase; the latency and every barrier are
+    timed."""
     from fgdp_tpu_torch.probes import chase
 
     occ = chase.table(dev, rows=50_000)
     n0 = kernels.LAUNCHES["gather_chase"]
     chase.check(occ)
     assert torch.equal(chase.chase(occ, 3, 0), chase.chase_plain(occ, 3, 0))
-    assert kernels.LAUNCHES["gather_chase"] == n0 + 3
+    assert kernels.LAUNCHES["gather_chase"] == n0 + 2 + len(chase.BARRIERS)
     cold, warm = chase.latency_us(occ, hops=256)
     assert cold > 0 and warm > 0
-    assert chase.barrier_us(occ, 8, 64, hops=64) > 0
+    for sync in chase.BARRIERS:
+        assert chase.barrier_us(occ, 8, 64, hops=64, sync=sync) > 0
 
 
 @pytest.mark.cuda
@@ -1702,3 +1705,67 @@ def test_seed_kernels_loop_over_lanes_past_resident_threads(dev, seed_ctx):
                OPT.min_seed_len, B, 160)
     _seed_equal(smem_k2lcp.k2_reseed_lcp(*k2_args, into=k1),
                 smem_k2lcp.k2_reseed_lcp_plain(*k2_args, into=k1), "K2")
+
+
+def _k1_on_card_equals_plain(dev, t, codes, lens, active):
+    """K1 on the card equal to its plain version; returns the launch's
+    plan."""
+    from fgdp_tpu_torch.ops import smem_lcp
+
+    args = seed_k1_inputs(t, codes, lens, active)
+    got = smem_lcp.smem_all_lcp_kernel(*args, 160, t[1].codes16)
+    want = smem_lcp.smem_all_lcp_plain(*args, 160, t[1].codes16)
+    _seed_equal(got, want, "K1")
+    return smem_lcp.launch_plan(*codes.shape, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,staged", [(151, True), (1600, False)])
+def test_k1_kernel_staged_and_in_place_equal_plain(dev, seed_ctx, L,
+                                                   staged):
+    """K1 at one lane a thread with the reads' codes staged in shared
+    memory (L 151) and read where they lie (L 1,600: 64 threads x 50
+    words of 16 bytes pass 48 KB), exactly equal to the torch-op loop;
+    the wave split's grid steps add up to the launch's."""
+    from fgdp_tpu_torch.ops import smem_lcp
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = seed_reads(g, 256, L, seed=L)
+    plan = _k1_on_card_equals_plain(dev, t, codes, lens, active)
+    assert (plan.lanes, plan.staged) == (1, staged)
+    args = seed_k1_inputs(t, codes, lens, active)
+    work = torch.zeros(smem_lcp.WORK_LEN, dtype=torch.int64, device=dev)
+    smem_lcp.smem_all_lcp_kernel(*args, 160, t[1].codes16, work=work)
+    w = work.cpu().tolist()
+    nb = len(smem_lcp.WAVE_BUCKETS)
+    assert sum(w[4 + nb:]) == w[1] > 0 and sum(w[4:4 + nb]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+def test_k1_kernel_four_lanes_a_thread_equal_plain(dev, seed_ctx, staged):
+    """K1 at four lanes a thread, the codes staged in shared memory or
+    read where they lie: one read more than the threads that can be
+    resident at one lane a thread, at the first read length whose launch
+    takes that form (L 101: four lanes' rows of 4 words fit in 48 KB at
+    64 threads a block; L 400: 13 words do not), exactly equal to the
+    torch-op loop."""
+    from fgdp_tpu_torch.ops import smem_lcp
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for L in (101, 400):
+        # past every one-lane form's resident threads
+        B, plan = 1, smem_lcp.launch_plan(1, L, dev)
+        while plan.lanes == 1:
+            B = plan.per_sm * sms * plan.threads + 1
+            plan = smem_lcp.launch_plan(B, L, dev)
+        if (plan.lanes, plan.staged) == (4, staged):
+            codes, lens, active = seed_reads(g, B, L, seed=6)
+            got = _k1_on_card_equals_plain(dev, t, codes, lens, active)
+            assert got == plan
+            return
+    raise AssertionError(f"no launch of four lanes a thread with staged "
+                         f"{staged} among the shapes tried")

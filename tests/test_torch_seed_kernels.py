@@ -92,7 +92,10 @@ def _batch(out):
                      overflow=torch.as_tensor(ovf.astype(bool)))
 
 
-def twin_k1(t, codes, lens, active, msl, max_seeds, max_rounds):
+def twin_k1(t, codes, lens, active, msl, max_seeds, max_rounds,
+            staged=True):
+    """K1's twin, the codes read from the staged rows (shared memory on
+    the card) or where they lie."""
     dfm, dref, tree, isa = t
     keep, fa = _fm_args(dfm)
     tr = np.ascontiguousarray(tree.numpy(), np.int32)
@@ -105,8 +108,9 @@ def twin_k1(t, codes, lens, active, msl, max_seeds, max_rounds):
     rc = kernels.build_host_twin().fgdp_smem_lcp_host(
         *fa, _p(tr), _p(ia), _p(c), _p(ln), _p(act), _p(words),
         words.shape[0], c.shape[0], c.shape[1], tr.shape[0] - 1,
-        2 * dfm.n_ref, msl, max_seeds, max_rounds, *map(_p, out))
-    assert rc == 0 and keep
+        2 * dfm.n_ref, msl, max_seeds, max_rounds, *map(_p, out),
+        int(staged), None, 0)
+    assert rc >= 0 and keep
     return _batch(out)
 
 
@@ -245,14 +249,15 @@ def test_k1_twin_equals_torch_and_jax(ctx, monkeypatch, caps):
     args = seed_k1_inputs(t, ctx["codes"], ctx["lens"], ctx["active"])
     want, live0 = _k1_plain_live_after_phase0(
         monkeypatch, args, K1_CAPS[caps], t[1].codes16)
-    got = twin_k1(t, ctx["codes"], ctx["lens"], ctx["active"],
-                  OPT.min_seed_len, max_seeds, max_rounds)
-    _eq(want, got, "twin vs torch")
     jb = _jax_k1(OPT.min_seed_len, max_seeds, max_rounds)(
         jdfm, jtree, jisa, jnp.asarray(ctx["codes"]),
         jnp.asarray(ctx["lens"]), jnp.asarray(ctx["active"]),
         ref_codes16=jdref.codes16)
-    _eq(jb, got, "twin vs fgdp_tpu")
+    for staged in (True, False):
+        got = twin_k1(t, ctx["codes"], ctx["lens"], ctx["active"],
+                      OPT.min_seed_len, max_seeds, max_rounds, staged)
+        _eq(want, got, f"twin (staged {staged}) vs torch")
+        _eq(jb, got, f"twin (staged {staged}) vs fgdp_tpu")
     walked = (got.k < -1) & (torch.arange(max_seeds)[None, :]
                              < got.count[:, None])
     assert bool(walked.any())          # text-walk seeds, k = -pos - 2
