@@ -11,8 +11,9 @@ fails loudly:
   1. card     name and power limit (nvidia-smi), torch and CUDA versions,
               the SM count and the maximum SM clock the bounds use
   2. build    the hand-written kernels from fgdp_tpu_torch/csrc (nvcc),
-              ptxas' registers and stack frames; K3's kernel must keep
-              no stack frame (cuobjdump -res-usage on its library)
+              ptxas' registers and stack frames; K3's, K1's one-lane, D9's
+              and D10's kernels must keep no stack frame (cuobjdump
+              -res-usage on their libraries)
   3. kernels  each kernel against its plain PyTorch version on the card
               at the main paths' shapes (seeded inputs; SW, chain loop
               and PairHMM exactly equal; PairHMM at the bench shape, a
@@ -123,7 +124,12 @@ fails loudly:
               Aligner's on the card (a read the joint ladder leaves
               overflowed, where it differs, equal to the joint Aligner's
               on the batch without the other overflowed reads), reads/s
-              of both, P1, P2 and D6 launches; then NCCL at world
+              of both, P1, P2 and D6 launches; ShardedAligner(lcp=False)
+              (the sweep, no LCP tree) SAM equal to the lcp=True one's on
+              every read and pair both its ladder and the joint one
+              resolve (the lcp=True shards' merged flag marks nearly
+              every read: each overflows in the other contig's shard);
+              then NCCL at world
               size 1: sharded duplicate marking and coordinate sort of
               1,000,000 records' keys equal to the single-device engine;
               the 2-D (dp, fm) mesh: shard_index + shard_align_fn_2d on
@@ -133,9 +139,18 @@ fails loudly:
               machine and LCP K1 + sweep K2 (FGDP_K2_SWEEP=1) against the
               LCP engine (ms a batch, overflowed reads, seeds equal on the
               reads neither flags); Aligner(lcp=False) `mem` with its
-              ladder (reads/s, escalated reads, P1 and P2 launches and
+              ladder on all 8,192 scale reads (reads/s beside the LCP
+              aligner's on the same batches, escalated reads, D9 sweep_fwd
+              and D10 sweep_bwd launches and kernel ms, each launch held
+              exactly against its torch-op loop, P1 and P2 launches and
               kernel ms), SAM equal to the LCP aligner's on the reads both
-              ladders resolve; the first 256 reads' sweep SAM card vs CPU;
+              ladders resolve; the sweep's seeding split of one primary
+              batch (D9, flatten, D10, emit for K1 and K2, K3, merge,
+              each ended by a sync; kernels against torch ops), D9's and
+              D10's ms, bytes bound and serial bound (probes.chase); the
+              FM index's and the LCP tree's bytes on the card a text
+              position, and reckoned for a 3.1 Gb reference; the first
+              256 reads' sweep SAM card vs CPU;
               exact_search and inexact_search (z = 1) on 4,096 patterns of
               read length, card vs CPU and against RMIndex.lookup_host
               (runs right after scale, whose index and reads it uses)
@@ -170,7 +185,8 @@ WARM_SITES = 5
 SEED_KERNELS = ("smem_lcp", "k2_lcp", "seed_strategy")
 MEM_KERNELS = ("chain_loop", "chain_flt", "sw_extend") + SEED_KERNELS
 PE_KERNELS = MEM_KERNELS + ("kswv",)
-SWEEP_KERNELS = ("chain_loop", "chain_flt", "sw_extend", "seed_strategy")
+SWEEP_KERNELS = ("chain_loop", "chain_flt", "sw_extend", "seed_strategy",
+                 "sweep_fwd", "sweep_bwd")
 
 
 def log(msg):
@@ -426,8 +442,9 @@ def phase_card():
 # kernels that must keep no stack frame, in every function whose name
 # holds the pattern: K3's every function, K1's one-lane kernels (R = 1,
 # the only ones mem runs: more lanes a thread need more reads than the
-# card holds threads)
-NO_STACK = {"seed_strategy": "", "smem_lcp": "ILi1E"}
+# card holds threads), the sweep's D9 and D10
+NO_STACK = {"seed_strategy": "", "smem_lcp": "ILi1E", "sweep_fwd": "",
+            "sweep_bwd": ""}
 
 
 def phase_build():
@@ -1147,10 +1164,10 @@ class EscCounter:
     """Counts kernel launches made inside escalated rungs; `rung` is the
     (flavor, level) of the rung running, None outside one."""
 
-    def __init__(self, aligner):
+    def __init__(self, aligner, names=MEM_KERNELS):
         from fgdp_tpu_torch.ops import kernels
         self.kernels = kernels
-        self.launches = {k: 0 for k in MEM_KERNELS}
+        self.launches = {k: 0 for k in names}
         self.rungs = []
         self.rung = None
         inner = aligner._esc_exec
@@ -1827,7 +1844,8 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
     flt_row(f"scale rung {widest[0]}", *widest[1])
     del d5
     return launches, dict(prefix=prefix, fq=fq, reads=reads, lines=lines,
-                          aligner=aligner, seed_rows=rows)
+                          aligner=aligner, seed_rows=rows,
+                          genome_bp=genome_bp)
 
 
 def _sync(dev):
@@ -1923,6 +1941,230 @@ def engines_compare(dfm, seeds):
     return res
 
 
+class SweepLaunches:
+    """D9's and D10's launches on a main-path run: every launch's card
+    inputs and outputs and the rung it ran in (the EscCounter's, None for
+    a primary batch), to be held against the torch-op loops after the
+    run, and the kernel ms of each from the events its C entry point
+    records around the launch."""
+
+    FNS = {"sweep_fwd": ("fwd_sweep_kernel", "fwd_sweep_plain"),
+           "sweep_bwd": ("bwd_entries_kernel", "bwd_entries_plain")}
+
+    def __init__(self, esc):
+        self.esc = esc
+
+    def __enter__(self):
+        from fgdp_tpu_torch.ops import kernels, smem_sweep
+        self.kernels, self.mod = kernels, smem_sweep
+        self.seen, self.inner = [], {}
+        for name, (kfn, _) in self.FNS.items():
+            inner = self.inner[name] = getattr(smem_sweep, kfn)
+
+            def spy(*a, _name=name, _inner=inner, **kw):
+                out = _inner(*a, **kw)
+                self.seen.append((_name, self.esc.rung, a, kw, out))
+                return out
+
+            setattr(smem_sweep, kfn, spy)
+            kernels.TIMED[name] = []
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, (kfn, _) in self.FNS.items():
+            setattr(self.mod, kfn, self.inner[name])
+        torch.cuda.synchronize()
+        self.launch_ms = {name: [s.elapsed_time(e) for s, e in
+                                 self.kernels.TIMED.pop(name, [])]
+                          for name in self.FNS}
+
+    def hold(self, tag):
+        """Every kept launch's outputs exactly equal to its torch-op loop
+        on its inputs; logs the launches held by kernel and rung."""
+        import torch
+        from collections import Counter
+        held = Counter()
+        for name, rung, a, kw, got in self.seen:
+            want = getattr(self.mod, self.FNS[name][1])(*a, **kw)
+            pairs = [(got[f], want[f], f) for f in want] \
+                if isinstance(want, dict) else zip(got, want,
+                                                   ("m", "kf", "sf"))
+            for x, y, f in pairs:
+                if not torch.equal(x, y):
+                    raise AssertionError(
+                        f"{name} launch of rung {rung} differs from its "
+                        f"torch-op loop in {f}")
+            held[name, "primary" if rung is None else
+                 f"{rung[0]} level {rung[1]}"] += 1
+        log(f"[{tag}] every D9 (sweep_fwd) and D10 (sweep_bwd) launch equals "
+            f"its torch-op loop on its inputs: " + ", ".join(
+                f"{k} {r}: {n}" for (k, r), n in sorted(held.items())))
+        return held
+
+
+def sweep_split(al, codes, lens, active, kernel):
+    """The sweep engine's collect_seeds at the aligner's primary caps
+    (pipeline.device_align's: prev_cap 20, K1's E = min(2 L + 16, 192)
+    and 44 backward lanes a read, K2's 2 jobs a read with E 22, 16
+    backward lanes a job and walk off) on one batch, piece by piece, each
+    ended by a sync, on D9, D10 and K3's kernels (kernel=True) or their
+    torch-op loops: ({piece: ms}, {piece: output})."""
+    import torch
+    from fgdp_tpu_torch.align import seeding
+    from fgdp_tpu_torch.ops import smem, smem_sweep as sw
+
+    sh, opt = al.shapes, al._dev_opt
+    if sh.seed_scale != 1 or sh.k2_scale or sh.k1_emit_cap or \
+            sh.k3_emit_cap:
+        raise ValueError("the split takes the primary caps")
+    B, L = codes.shape
+    S, msl, pc = sh.max_smems, opt.min_seed_len, 20
+    dfm, c16 = al.dfm, al.dref.codes16
+    fwd = sw.fwd_sweep_kernel if kernel else sw.fwd_sweep_plain
+    bwd = sw.bwd_entries_kernel if kernel else sw.bwd_entries_plain
+    k3fn = _seed_fn("seed_strategy", 1 if kernel else 2)
+    ms, out = {}, {}
+
+    def lap(piece, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[piece] = fn()
+        torch.cuda.synchronize()
+        ms[piece] = 1e3 * (time.perf_counter() - t0)
+        return out[piece]
+
+    rid = torch.arange(B, dtype=torch.int32, device=codes.device)
+    ones = torch.ones_like(rid)
+    E = min(2 * L + 16, 192)
+    fw = lap("K1 D9", lambda: fwd(dfm, codes, lens, rid,
+                                   torch.zeros_like(rid), ones, active, pc,
+                                   E, c16, restart=True))
+    lanes, drop = lap("K1 flatten", lambda: sw.flatten_entries(
+        fw, rid, ones, E, B * 44))
+    bw = lap("K1 D10", lambda: bwd(dfm, codes, lens, lanes, c16))
+    k1 = lap("K1 emit", lambda: (lambda sb: sb._replace(
+        overflow=sb.overflow | fw["povf"] | fw["eovf"] | drop))(
+        sw.emit_merge(lanes, *bw, msl, B, S)))
+    split_len = int(msl * opt.split_factor + 0.499)
+    _, k_read, x, mi, on, k2_ovf = lap("K2 jobs", lambda: seeding.k2_jobs(
+        k1, opt, split_len, 2 * B))
+    fw2 = lap("K2 D9", lambda: fwd(dfm, codes, lens, k_read, x, mi, on, pc,
+                                    pc + 2, c16, restart=False, walk=False))
+    lanes2, drop2 = lap("K2 flatten", lambda: sw.flatten_entries(
+        fw2, k_read, mi, pc + 2, 2 * B * 16))
+    bw2 = lap("K2 D10", lambda: bwd(dfm, codes, lens, lanes2, c16))
+    k2 = lap("K2 emit", lambda: (lambda sb: sb._replace(
+        overflow=sb.overflow | smem.any_by(k_read, fw2["povf"] | fw2["eovf"],
+                                           B)
+        | smem.any_by(k_read, drop2, B)))(
+        sw.emit_merge(lanes2, *bw2, msl, B, S, into=k1)))
+    k3 = lap("K3", lambda: k3fn(dfm, codes, lens, active, opt.max_mem_intv,
+                                msl + 1, S))
+    lap("merge", lambda: seeding.merge_sorted(k2, k3, k2_ovf))
+    ms["total"] = sum(ms.values())
+    return ms, out
+
+
+def sweep_rows(al, codes, lens, active, want):
+    """The sweep's seeding split on one primary batch, kernels against
+    torch ops (in turns: plain, kernels, kernels, plain; the second of
+    each kept), its seeds equal to collect_seeds' (`want`) and to the
+    torch ops', and the kernels line's rows of D9 and D10 on that batch's
+    K1 launches: kernel ms (mean of 10 launches, CUDA events), plain ms
+    (the split's), the bytes bound (table bytes the lanes gather, counted
+    by the kernel, plus inputs read and outputs written once) and the
+    design-independent serial bound (probes.chase on this index's occ
+    rows: the busiest lane's dependent gathers times the latency of one,
+    a gather of two occ rows); K2's launches logged beside them."""
+    import torch
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+    from fgdp_tpu_torch.probes import chase
+    sp0, _ = sweep_split(al, codes, lens, active, kernel=False)
+    sk0, _ = sweep_split(al, codes, lens, active, kernel=True)
+    sk, got = sweep_split(al, codes, lens, active, kernel=True)
+    sp, plain = sweep_split(al, codes, lens, active, kernel=False)
+    for f in want._fields:
+        if not (torch.equal(getattr(got["merge"], f), getattr(want, f))
+                and torch.equal(getattr(plain["merge"], f),
+                                getattr(want, f))):
+            raise AssertionError(f"the sweep split's seeds differ from "
+                                 f"collect_seeds' in {f}")
+    B = codes.shape[0]
+    log(f"[engines] sweep seeding split of one primary batch ({B} reads, "
+        f"synced ms; first pass in brackets): kernels "
+        + ", ".join(f"{k} {v:.2f} [{sk0[k]:.2f}]" for k, v in sk.items())
+        + "; torch ops "
+        + ", ".join(f"{k} {v:.1f} [{sp0[k]:.1f}]" for k, v in sp.items())
+        + f"; torch ops / kernels {sp['total'] / sk['total']:.1f}x")
+    occ = al.dfm.occ_fused
+    cold, lat = chase.latency_us(occ)
+    log(f"[engines] gather_chase on the scale index: {lat:.4f} us a hop "
+        f"warm (cold {cold:.4f})")
+    c16, L = al.dref.codes16, codes.shape[1]
+    rid = torch.arange(B, dtype=torch.int32, device=codes.device)
+    ones = torch.ones_like(rid)
+    E = min(2 * L + 16, 192)
+    calls = {
+        ("sweep_fwd", "K1"): (sw.fwd_sweep_kernel, (
+            al.dfm, codes, lens, rid, torch.zeros_like(rid), ones, active,
+            20, E, c16), dict(restart=True)),
+        ("sweep_bwd", "K1"): (sw.bwd_entries_kernel, (
+            al.dfm, codes, lens, got["K1 flatten"][0], c16), {}),
+        ("sweep_fwd", "K2"): (sw.fwd_sweep_kernel, (
+            al.dfm, codes, lens, *got["K2 jobs"][1:5], 20, 22, c16),
+            dict(restart=False, walk=False)),
+        ("sweep_bwd", "K2"): (sw.bwd_entries_kernel, (
+            al.dfm, codes, lens, got["K2 flatten"][0], c16), {}),
+    }
+    in_bytes = 4 * codes.numel() + 4 * B
+    rows = {}
+    for (name, k), (fn, a, kw) in calls.items():
+        work = torch.zeros(4, dtype=torch.int64, device=codes.device)
+        fn(*a, **kw, work=work)
+        work = [int(v) for v in work.cpu()]
+        ms = timed_ms(name, lambda: fn(*a, **kw))
+        if name == "sweep_fwd":
+            NL, Ek = a[4].numel(), a[8]
+            nbytes = work[0] + in_bytes + 13 * NL + 16 * NL * Ek + 6 * NL
+        else:
+            NL = a[3]["n"].numel()
+            nbytes = work[0] + in_bytes + 21 * NL + 12 * NL
+        b_ms, b_by = bound(nbytes, 0, 1.0)
+        indep = 1e-3 * work[1] * lat
+        plain_ms = sp[f"{k} {'D9' if name == 'sweep_fwd' else 'D10'}"]
+        log(f"[engines] {name} ({k}, {NL} lanes) on the batch: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms; {work[0]} table bytes "
+            f"gathered, {work[2]} lane steps, longest lane {work[3]} steps, "
+            f"busiest lane {work[1]} dependent gathers; bound {b_ms:.5f} ms "
+            f"({b_by}, {nbytes} bytes); design-independent serial bound "
+            f"{indep:.4f} ms ({work[1]} gathers x {lat:.4f} us); kernel / "
+            f"it {ms / max(indep, 1e-9):.2f}")
+        if k == "K1":
+            rows[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rows
+
+
+def index_bytes(al, genome_bp):
+    """Logs the bytes on the card of the aligner's DeviceFMIndex and of
+    its LCP tree and ISA, each a text position, and the same reckoned
+    for a 3.1 Gb reference (the same bytes a position)."""
+    dfm = al.dfm
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    fm_b = size((dfm.occ_fused, dfm.sa, dfm.counts, dfm.c2))
+    lcp_b = size((al.lcp_tree, al.lcp_isa))
+    npos = dfm.text_len
+    human = 2 * 3_100_000_000 + 1
+    log(f"[engines] bytes on the card of the scale index ({genome_bp} bp, "
+        f"{npos} text positions, both strands): DeviceFMIndex {fm_b} = "
+        f"{fm_b / npos:.3f} B a text position; LCP tree + ISA {lcp_b} = "
+        f"{lcp_b / npos:.3f} B a text position. Reckoned for a 3.1 Gb "
+        f"reference ({human} text positions, a reckoning, not measured): "
+        f"DeviceFMIndex {fm_b / npos * human / 1e9:.1f} GB, LCP tree + ISA "
+        f"{lcp_b / npos * human / 1e9:.1f} GB, against the card's 80 GB")
+
+
 def phase_engines(dev, ctx, batch):
     """The fallback engines on the scale phase's index and its first full
     batch of reads: (a) collect_seeds on the sweep, the wave machine
@@ -1930,8 +2172,15 @@ def phase_engines(dev, ctx, batch):
     to the LCP engine's seeds on every read neither flags overflowed
     (the sweep strictly; a read where another engine differs must carry
     the sweep's seeds: fgdp_tpu's K2 engines disagree there);
-    (b) Aligner(lcp=False) `mem` with its ladder, SAM equal to the LCP
-    aligner's (the scale phase's) for every read both ladders resolve;
+    (b) Aligner(lcp=False) `mem` with its ladder over every scale read
+    (two batches), SAM equal to the LCP aligner's (the scale phase's) for
+    every read both ladders resolve, reads/s beside the LCP aligner's on
+    the same batches, every D9 and D10 launch (primary batches and every
+    rung) held exactly against its torch-op loop on its inputs; the
+    sweep's seeding split of the first batch (kernels against torch ops,
+    its seeds equal to collect_seeds'), D9's and D10's rows of the
+    kernels line, and the bytes on the card of the FM index and of the
+    LCP tree and ISA, a text position and reckoned for 3.1 Gb;
     (c) the first 256 reads' sweep SAM on the card equal to the CPU's;
     (d) exact_search and inexact_search (z = 1) on 4,096 patterns of read
     length (exact substrings of both strands and mutated ones), equal to
@@ -1961,7 +2210,8 @@ def phase_engines(dev, ctx, batch):
     tl = torch.as_tensor(lens, device=dev)
 
     # ---- (a) seeds by engine ----
-    res = engines_compare(lcp_al.dfm, engines_seeds(dev, lcp_al, tc, tl))
+    seeds = engines_seeds(dev, lcp_al, tc, tl)
+    res = engines_compare(lcp_al.dfm, seeds)
     for name, r in res.items():
         log(f"[engines] {name}: {r['ms']:.1f} ms for {r['reads']} reads "
             f"(synced), {r['ovf']} reads flag overflow; of the "
@@ -1972,41 +2222,112 @@ def phase_engines(dev, ctx, batch):
         raise AssertionError("an engine's seeds differ from the LCP "
                              "engine's on reads neither flags")
 
-    # ---- (b) the sweep aligner, ladder included ----
+    # ---- (b) the sweep aligner, ladder included, on every scale read ----
     pref = PackedReference.load(prefix + ".ref")
     fm = FMIndex.load(prefix + ".fmi")
     shapes = BatchShapes(batch_reads=batch)
     sweep = Aligner(pref, fm, shapes=shapes, lcp=False, device=dev)
+    batches = list(cli.read_batches([ctx["fq"]], batch))
+    n_all = sum(len(b[1]) for b in batches)
     kernels.reset_launches()
     kernels.TIMED["sw_extend"] = []
+    esc = EscCounter(sweep, SWEEP_KERNELS)
     try:
-        with ChainLaunches() as p2:
+        with ChainLaunches() as p2, SweepLaunches(esc) as d910:
             _sync(dev)
             t0 = time.time()
-            lines = sweep.align_batch(names, seqs, quals)
+            lines = [ln for b in batches for ln in sweep.align_batch(*b)]
             _sync(dev)
             wall = time.time() - t0
         sw_ms = sum(s.elapsed_time(e) for s, e in kernels.TIMED["sw_extend"])
     finally:
         kernels.TIMED.pop("sw_extend", None)
     launches = {k: kernels.LAUNCHES[k] for k in SWEEP_KERNELS}
-    ours, theirs = by_qname(lines), by_qname(ctx["lines"])
-    resolved = [n for n, s in zip(names, seqs) if not Unresolved.has(s)]
+    # the LCP aligner (the scale phase's) on the same batches, the same way
+    stage = lcp_al.stage_ms, lcp_al.esc_stage_ms
+    lcp_al.stage_ms = lcp_al.esc_stage_ms = None
+    try:
+        _sync(dev)
+        t0 = time.time()
+        lcp_lines = [ln for b in batches for ln in lcp_al.align_batch(*b)]
+        _sync(dev)
+        lcp_wall = time.time() - t0
+    finally:
+        lcp_al.stage_ms, lcp_al.esc_stage_ms = stage
+    names_all = [n for b in batches for n in b[0]]
+    seqs_all = [q for b in batches for q in b[1]]
+    ours, theirs = by_qname(lines), by_qname(lcp_lines)
+    resolved = [n for n, q in zip(names_all, seqs_all)
+                if not Unresolved.has(q)]
     differ = [n for n in resolved if ours.get(n) != theirs.get(n)]
-    log(f"[engines] Aligner(lcp=False) mem: {B} reads in {wall:.2f} s = "
-        f"{B / wall:.1f} reads/s (ladder included), {sweep.esc_reads} "
-        f"escalated reads in {sweep.esc_calls} rung calls; sw_extend (P1) "
-        f"{launches['sw_extend']} launches, {sw_ms:.3f} ms; chain_loop "
-        f"(P2) {len(p2.launch_ms)} launches, {sum(p2.launch_ms):.3f} ms")
+    streamed = by_qname(ctx["lines"])
+    log(f"[engines] the LCP aligner's SAM by align_batch against scale's "
+        f"stream_mem: {sum(theirs.get(n) != streamed.get(n) for n in resolved)}"
+        f" of the {len(resolved)} resolved reads differ")
+    for n in differ[:3]:
+        log(f"[engines] differs: {n}: sweep {[ln[:160] for ln in ours.get(n, [])]}"
+            f" LCP {[ln[:160] for ln in theirs.get(n, [])]}")
+    if differ:
+        # the differing reads' seeds by engine, on their batch
+        from fgdp_tpu_torch.align import seeding
+        i = names_all.index(differ[0]) // batch
+        bc = np.full((len(batches[i][1]), L), 4, np.int32)
+        bl = np.zeros(len(batches[i][1]), np.int32)
+        for r, q in enumerate(batches[i][1]):
+            bc[r, :min(len(q), L)] = q[:L]
+            bl[r] = min(len(q), L)
+        bt, blt = torch.as_tensor(bc, device=dev), torch.as_tensor(
+            bl, device=dev)
+        act = torch.ones(len(bl), dtype=torch.bool, device=dev)
+        kw = dict(max_seeds=lcp_al.shapes.max_smems, prev_cap=20)
+        sl = seeding.collect_seeds(lcp_al.dfm, lcp_al.dref, bt, blt, act,
+                                   lcp_al._dev_opt, lcp_tree=lcp_al.lcp_tree,
+                                   lcp_isa=lcp_al.lcp_isa, **kw)
+        ss = seeding.collect_seeds(lcp_al.dfm, lcp_al.dref, bt, blt, act,
+                                   lcp_al._dev_opt, **kw)
+        kl, ks = seed_keys(lcp_al.dfm, sl), seed_keys(lcp_al.dfm, ss)
+        for n in differ[:8]:
+            r = names_all.index(n) - i * batch
+            log(f"[engines] {n}: primary seeds equal "
+                f"{bool((kl[r] == ks[r]).all()) and int(sl.count[r]) == int(ss.count[r])}"
+                f", overflow LCP {bool(sl.overflow[r])} sweep "
+                f"{bool(ss.overflow[r])}, counts {int(sl.count[r])} "
+                f"{int(ss.count[r])}")
+    d_ms = {k: (len(v), sum(v)) for k, v in d910.launch_ms.items()}
+    log(f"[engines] Aligner(lcp=False) mem: {n_all} reads in {wall:.2f} s = "
+        f"{n_all / wall:.1f} reads/s (batch {batch}, ladder included); the "
+        f"LCP aligner on the same batches in this call: {lcp_wall:.2f} s = "
+        f"{n_all / lcp_wall:.1f} reads/s; sweep / LCP wall "
+        f"{wall / lcp_wall:.2f}x; {sweep.esc_reads} escalated reads in "
+        f"{sweep.esc_calls} rung calls {sorted(set(esc.rungs))}")
+    log(f"[engines] on the sweep aligner's path: sweep_fwd (D9) "
+        f"{d_ms['sweep_fwd'][0]} launches, {d_ms['sweep_fwd'][1]:.3f} ms; "
+        f"sweep_bwd (D10) {d_ms['sweep_bwd'][0]} launches, "
+        f"{d_ms['sweep_bwd'][1]:.3f} ms (CUDA events its C entry point "
+        f"records) = {100 * (d_ms['sweep_fwd'][1] + d_ms['sweep_bwd'][1]) / (1e3 * wall):.3f}% "
+        f"of the wall; sw_extend (P1) {launches['sw_extend']} launches, "
+        f"{sw_ms:.3f} ms; chain_loop (P2) {len(p2.launch_ms)} launches, "
+        f"{sum(p2.launch_ms):.3f} ms; launches {launches}, of which in "
+        f"rungs {esc.launches}")
+    if any(d_ms[k][0] != launches[k] for k in d_ms):
+        raise AssertionError(f"D9/D10 launches not all seen: {d_ms}")
+    held = d910.hold("engines")
+    if any(held[k, "primary"] <= 0 for k in d_ms):
+        raise AssertionError(f"D9/D10 launches held: {dict(held)}")
+    del d910
     n_same = len(resolved) - len(differ)
     log(f"[engines] SAM equal to the LCP aligner's for {n_same} of the "
         f"{len(resolved)} reads both ladders resolve {differ[:4]}")
-    if differ or len(resolved) < 0.75 * B:
+    if differ or len(resolved) < 0.75 * n_all:
         raise AssertionError("the sweep aligner's SAM differs from the LCP "
                              "aligner's")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the sweep "
                              f"aligner's path: {launches}")
+    rows = sweep_rows(sweep, tc, tl, torch.ones(B, dtype=torch.bool,
+                                                device=dev),
+                      seeds["sweep"][0])
+    index_bytes(lcp_al, ctx["genome_bp"])
 
     # ---- (c) card against CPU ----
     t0 = time.time()
@@ -2090,7 +2411,7 @@ def phase_engines(dev, ctx, batch):
     if not (same_exact and same_inx and same_host
             and found == int((~mut).sum())):
         raise AssertionError("exact or inexact search on the card is wrong")
-    return launches
+    return launches, rows
 
 
 def phase_mutect_golden(tmp):
@@ -3031,8 +3352,10 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
     the reads that share its escalation buckets, which the shards fill
     differently (ROADMAP queue 3): each that differs is held against the
     joint Aligner on the batch without the other overflowed reads.
-    Reads/s of both, P1, P2 and D6 launches of the sharded runs. Then
-    NCCL at world size 1: sharded duplicate marking and coordinate sort
+    Reads/s of both, P1, P2 and D6 launches of the sharded runs.
+    ShardedAligner(lcp=False) (the sweep, no LCP tree a shard): SAM equal
+    to the lcp=True aligner's on every read (pair) that both its ladder
+    and the joint one resolve. Then NCCL at world size 1: sharded duplicate marking and coordinate sort
     of 1,000,000 records' keys equal to the single-device engine on the
     card, and the 2-D (dp, fm) mesh: shard_index + shard_align_fn_2d on
     the SE batch, packed regs equal to the unsharded device_align's."""
@@ -3074,6 +3397,20 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
         return regs
 
     joint._device_regs = spy
+
+    def left_of(al):
+        """Record the merged overflow flags of a sharded aligner's runs."""
+        flags, inner_al = [], al._device_regs
+
+        def spy_al(seq_codes):
+            regs = inner_al(seq_codes)
+            flags.append(regs["overflow"])
+            return regs
+
+        al._device_regs = spy_al
+        return flags
+
+    sh_left = left_of(sharded)
     for name, al in (("sharded", sharded), ("joint", joint)):
         kernels.reset_launches()
         for mode, fn, args in (("SE", al.align_batch, (names, seqs)),
@@ -3130,6 +3467,46 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
     if min(sh_launches.values()) <= 0:
         raise AssertionError(f"a kernel never launched on the sharded "
                              f"path: {sh_launches}")
+
+    # ---- the sweep's shards (lcp=False: no LCP tree a shard) ----
+    t0 = time.time()
+    sweep = ShardedAligner(pref, 2, lcp=False, shapes=shapes, device=dev)
+    if any(sh.lcp_tree is not None for sh in sweep.shards):
+        raise AssertionError("ShardedAligner(lcp=False) built an LCP tree")
+    sw_left = left_of(sweep)
+    kernels.reset_launches()
+    sw_out = {"SE": sweep.align_batch(names, seqs),
+              "PE": sweep.align_pairs(pnames, pseqs)}
+    torch.cuda.synchronize()
+    sw_launches = {k: kernels.LAUNCHES[k] for k in SWEEP_KERNELS}
+    log(f"[sharded] ShardedAligner(lcp=False): SE and PE in "
+        f"{time.time() - t0:.1f} s with its shards' indexes; escalated "
+        f"reads {sum(sh.esc_reads for sh in sweep.shards)}; launches "
+        f"{sw_launches}")
+    # lcp=True's merged flag is set on nearly every read (each overflows
+    # in the other contig's shard and runs its whole ladder there), so
+    # the joint ladder's flags (which lcp=True's SAM equals on the reads
+    # they clear, above) stand in for its ladder
+    bad = 0
+    for i, (m, nm) in enumerate((("SE", names), ("PE", pnames))):
+        either = left[i] | sw_left[i]
+        both_ok = set(nm) - {q for q, f in zip(nm, either) if f}
+        a, b = by_qname(sw_out[m]), by_qname(out["sharded", m])
+        differ = {q for q in both_ok if a.get(q) != b.get(q)}
+        unit = "reads" if m == "SE" else "pairs"
+        log(f"[sharded] {m}: ShardedAligner(lcp=False) SAM equal to "
+            f"lcp=True's for {len(both_ok) - len(differ)} of the "
+            f"{len(both_ok)} {unit} both ladders resolve "
+            f"{sorted(differ)[:4]}; the sweep's ladder leaves "
+            f"{int(sw_left[i].sum())} reads overflowed, lcp=True's "
+            f"{int(sh_left[i].sum())} (its merged flag), the joint's "
+            f"{int(left[i].sum())}; all equal: "
+            f"{sw_out[m] == out['sharded', m]}")
+        bad += len(differ) + (len(both_ok) < 0.5 * len(set(nm)))
+    if bad or min(sw_launches.values()) <= 0:
+        raise AssertionError("ShardedAligner(lcp=False) differs from "
+                             "ShardedAligner(lcp=True), or a kernel never "
+                             f"launched on its path: {sw_launches}")
 
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
@@ -3305,7 +3682,9 @@ def main(argv=None):
             rows.update(ctx["seed_rows"])
         if "engines" in phases:
             with phase_clock("engines"):
-                phase_engines(dev, ctx, 4096)
+                eng_launches, eng_rows = phase_engines(dev, ctx, 4096)
+            launches.update({k: eng_launches[k] for k in eng_rows})
+            rows.update(eng_rows)
         if "mutect_golden" in phases:
             with phase_clock("mutect_golden"):
                 phase_mutect_golden(tmp)
@@ -3355,6 +3734,12 @@ def main(argv=None):
         "seed_strategy": ("cuda", "fgdp_tpu_torch/csrc/seed_strategy.cu",
                           "fgdp_tpu/ops/smem.py:872 seed_strategy (D4, "
                           "lax.while_loop)"),
+        "sweep_fwd": ("cuda", "fgdp_tpu_torch/csrc/sweep_fwd.cu",
+                      "fgdp_tpu/ops/smem_sweep.py:129 fwd_sweep (D9, its "
+                      "lax.while_loop :300)"),
+        "sweep_bwd": ("cuda", "fgdp_tpu_torch/csrc/sweep_bwd.cu",
+                      "fgdp_tpu/ops/smem_sweep.py:359 bwd_entries (D10, its "
+                      "lax.while_loops :414, :421, :450, :455)"),
         "vpu_ceiling": ("cuda", "fgdp_tpu_torch/csrc/vpu_ceiling.cu",
                         "scripts/bench_vpu_ceiling.py:44"),
         "gather_rows": ("cuda", "fgdp_tpu_torch/csrc/gather_rows.cu",

@@ -35,6 +35,12 @@ struct FmView {
 
 FGDP_HD int fm_clamp3(int c) { return fgdp_min(fgdp_max(c, 0), 3); }
 
+// v[c] with c = 0..3 a run-time character: register selects (an array
+// indexed by a run-time value would go to the stack frame)
+FGDP_HD int fm_pick4(const int v[4], int c) {
+  return c == 0 ? v[0] : (c == 1 ? v[1] : (c == 2 ? v[2] : v[3]));
+}
+
 FGDP_HD long long fm_clampll(long long v, long long hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
@@ -91,7 +97,8 @@ FGDP_HD void fm_fetch(const FmView& fm, int i, int c2fix, FmRanks& o) {
   const unsigned mb0 = fm_sel(w[0], cf), mb1 = fm_sel(w[1], cf);
   for (int c1 = 0; c1 < 4; ++c1) {
     const int cc = c1 * 4 + cf;
-    int x = v[4 + cc] + fm_popc(mb0 & fm_sel(w[2], c1) & pm[0]) +
+    const int* row2 = v + 4 + 4 * c1;   // the pairs (c1, 0..3)
+    int x = fm_pick4(row2, cf) + fm_popc(mb0 & fm_sel(w[2], c1) & pm[0]) +
             fm_popc(mb1 & fm_sel(w[3], c1) & pm[1]);
     if (cc == fm.cc_r0 && i > fm.sentinel_row) x -= 1;
     if (cc == fm.cc_r1 && i > fm.r1_row) x -= 1;
@@ -122,9 +129,9 @@ FGDP_HD void fm_bwd_from_ranks(const FmView& fm, const FmRanks& lo,
   ls[1] = ls[2] + sz[2];
   ls[0] = ls[1] + sz[1];
   const int cc = fm_clamp3(c);
-  nk = fgdp_ld(fm.counts + cc) + lo.occ1[cc];
-  nl = ls[cc];
-  ns = sz[cc];
+  nk = fgdp_ld(fm.counts + cc) + fm_pick4(lo.occ1, cc);
+  nl = fm_pick4(ls, cc);
+  ns = fm_pick4(sz, cc);
 }
 
 // _fetch_pair, split in two: what a pair rank reads of one row (the
@@ -225,18 +232,17 @@ FGDP_HD void fm_forward_extend2(const FmView& fm, int k, int l, int s,
   fm_bwd_from_ranks(fm, lo, hi, k, ca3, l1, k1, s1);
   // final: the 2-step prepend (3-cb)(3-ca) on the reverse-complement side
   const int pair = cb3 * 4 + ca3;
-  l2 = fgdp_ld(fm.c2 + pair) + lo.occ2c[cb3];
+  l2 = fgdp_ld(fm.c2 + pair) + fm_pick4(lo.occ2c, cb3);
   int d[4], sum = 0;
   for (int t = 0; t < 4; ++t) {
     d[t] = hi.occ2c[t] - lo.occ2c[t];
     sum += d[t];
   }
-  s2 = d[cb3];
+  s2 = fm_pick4(d, cb3);
   // forward sub-partition of [k1, k1 + s1): '$' first, then increasing
-  // continuation character (d indexed by 3 - character)
-  const int cbc = fm_clamp3(cb);
-  int before = 0;
-  for (int t = 0; t < cbc; ++t) before += d[3 - t];
+  // continuation character (d indexed by 3 - character, cb = 3 - cb3)
+  const int before = (cb3 < 3 ? d[3] : 0) + (cb3 < 2 ? d[2] : 0) +
+                     (cb3 < 1 ? d[1] : 0);
   k2 = k1 + (s1 - sum) + before;
 }
 
@@ -280,11 +286,6 @@ struct FmGroupRank {
     return fm_group_rank(fm, g < 8 ? l : l + s, g & 7, cf);
   }
 };
-
-// v[c] with c = 0..3 a run-time character: register selects
-FGDP_HD int fm_pick4(const int v[4], int c) {
-  return c == 0 ? v[0] : (c == 1 ? v[1] : (c == 2 ? v[2] : v[3]));
-}
 
 // fm_forward_extend2 by a group: `grp` runs FmGroupRank on its lanes
 // (grp.each) and reads lane t's value (grp.get); every lane ends with

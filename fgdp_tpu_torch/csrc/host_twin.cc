@@ -7,7 +7,8 @@
 // lockstep; K3 with its group's 16 lanes in lockstep), the FM rank
 // primitives (fm.cuh) one interval at a time, and the seeding wave machines (smem_lcp.cuh,
 // k2_lcp.cuh) with every lane in one thread and the counts taken on the
-// host step by step, so the logic can be
+// host step by step, the sweep's two phases (sweep_fwd.cuh,
+// sweep_bwd.cuh) one lane after another, so the logic can be
 // held against the plain PyTorch versions where there is no nvcc. It
 // builds with -ffp-contract=off, so that no multiply and add fuse into
 // one rounding, as on the card. The port's CPU path never calls it; it
@@ -212,6 +213,8 @@ struct HostWarp {
 #include "seed_strategy.cuh"
 #include "smem_lcp.cuh"
 #include "sw_extend.cuh"
+#include "sweep_bwd.cuh"
+#include "sweep_fwd.cuh"
 #include "vpu_ceiling.cuh"
 
 // One lane that is the whole warp: every shuffle and reduction returns
@@ -714,5 +717,46 @@ extern "C" int fgdp_seed_strategy_host(
   std::vector<signed char> buf((size_t)L + 1);
   for (int rd = 0; rd < B; ++rd)
     k3_read(A, rd, grp, staged ? buf.data() : nullptr);
+  return 0;
+}
+
+// D9 (fgdp_sweep_fwd's arguments but the events and stream), one lane
+// after another
+extern "C" int fgdp_sweep_fwd_host(
+    FM_HOST_ARGS, const int* codes, const int* lens, const int* rid,
+    const int* x0, const int* min_intv, const unsigned char* active,
+    const long long* words, long long nwords, int B, int L, int NL, int E,
+    int prev_cap, int l2ref, int restart, int walk, int* em, int* en,
+    int* ek, int* es, int* ecount, unsigned char* povf, unsigned char* eovf,
+    long long* work) {
+  const SweepFwdArgs A{FM_VIEW, codes, lens,     rid,   x0,     min_intv,
+                       active,  words, nwords,   B,     L,      NL,
+                       E,       prev_cap, l2ref, em,    en,     ek,
+                       es,      ecount, povf,    eovf,  work};
+  for (int t = 0; t < NL; ++t) {
+    if (restart && walk)
+      sweep_fwd_lane<true, true>(A, t);
+    else if (restart)
+      sweep_fwd_lane<true, false>(A, t);
+    else if (walk)
+      sweep_fwd_lane<false, true>(A, t);
+    else
+      sweep_fwd_lane<false, false>(A, t);
+  }
+  return 0;
+}
+
+// D10 (fgdp_sweep_bwd's arguments but the events and stream), one lane
+// after another
+extern "C" int fgdp_sweep_bwd_host(
+    FM_HOST_ARGS, const int* codes, const int* lens, const int* rid,
+    const int* anc, const int* k, const int* s, const int* mi,
+    const unsigned char* on, const long long* words, long long nwords, int B,
+    int L, int NL, int l2ref, int* out_m, int* out_kf, int* out_sf,
+    long long* work) {
+  const SweepBwdArgs A{FM_VIEW, codes, lens,  rid, anc,   k,     s,
+                       mi,      on,    words, nwords, B,  L,     NL,
+                       l2ref,   out_m, out_kf, out_sf, work};
+  for (int t = 0; t < NL; ++t) sweep_bwd_lane(A, t);
   return 0;
 }

@@ -189,18 +189,20 @@ struct LcpInPlace {
 };
 
 // the text's codes at [start, start + 64) (slot i = position start + i)
-// from the five packed words that cover them, each index clamped to the
-// table as packed_window's gather is
-FGDP_HD void lcp_text_window(const LcpArgs& A, int start, lcp_u64 t[2]) {
+// from the five packed words (of `nwords`) that cover them, each index
+// clamped to the table as packed_window's gather is; the sweep's kernels
+// (sweep_fwd.cuh, sweep_bwd.cuh) take it too
+FGDP_HD void lcp_text_window(const long long* words, long long nwords,
+                             int start, lcp_u64 t[2]) {
   const long long w0 = (long long)(start >> 4);
   lcp_u64 v[5];
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
-    const long long w = fm_clampll(w0 + k, A.nwords - 1);
+    const long long w = fm_clampll(w0 + k, nwords - 1);
 #ifdef __CUDA_ARCH__
-    v[k] = (unsigned)__ldg(A.words + w);
+    v[k] = (unsigned)__ldg(words + w);
 #else
-    v[k] = (unsigned)A.words[w];
+    v[k] = (unsigned)words[w];
 #endif
   }
   const int sh = 2 * (start & 15);
@@ -302,7 +304,7 @@ FGDP_HD void lcp_walk(const LcpArgs& A, const Rows& rows, LcpLane& st) {
   if (st.pos < 0) st.gb += 4;
   lcp_u64 rc[2], rn[2], tc[2], rout[2], tout[2];
   rows.window(A, st, l - LCP_WALK_T, rc, rn);
-  lcp_text_window(A, pos - LCP_WALK_T, tc);
+  lcp_text_window(A.words, A.nwords, pos - LCP_WALK_T, tc);
   lcp_slots_outside((long long)l - LCP_WALK_T, st.len, rout);
   lcp_slots_outside((long long)pos - LCP_WALK_T, A.l2ref, tout);
   lcp_u64 rbad[2], bad[2];

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel source in csrc/ (sw_extend.cu, chain_loop.cu, chain_flt.cu,
-kswv.cu, pairhmm.cu, the seeding kernels smem_lcp.cu, k2_lcp.cu and
-seed_strategy.cu, and the probes' vpu_ceiling.cu, gather_rows.cu and
-gather_chase.cu) is
+kswv.cu, pairhmm.cu, the LCP engine's seeding kernels smem_lcp.cu,
+k2_lcp.cu and seed_strategy.cu, the sweep engine's sweep_fwd.cu (D9, its
+forward phase) and sweep_bwd.cu (D10, its backward phase), and the
+probes' vpu_ceiling.cu, gather_rows.cu and gather_chase.cu) is
 compiled by nvcc for sm_90a into its own shared library with a plain C
 interface under build/fgdp_tpu_torch/ at the repository root, and bound
 with ctypes. The build happens at first use (one nvcc per source, all started
@@ -16,8 +17,10 @@ build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
 or 32 lanes in lockstep for the register paths of the chain loop, kswv
 and PairHMM and for the chain filter; the seeding wave machines with every lane in one thread and
-their counts taken step by step), which the CPU tests hold against the
-plain PyTorch versions. The port never runs it.
+their counts taken step by step; the sweep's two phases one lane after
+another), which the CPU tests hold against the plain PyTorch versions
+(tests/test_torch_sweep_kernels.py for D9 and D10). The port never runs
+it.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..io.native import BUILD_DIR
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 KERNELS = ("chain_flt", "chain_loop", "gather_chase", "gather_rows",
            "k2_lcp", "kswv", "pairhmm", "seed_strategy", "smem_lcp",
-           "sw_extend", "vpu_ceiling")
+           "sw_extend", "sweep_bwd", "sweep_fwd", "vpu_ceiling")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -88,6 +91,14 @@ _SIGS = {
     "fgdp_seed_strategy": _FM + [_P] * 3 + [_I] * 5 + [_P] * 7 + [_P] * 3,
     "fgdp_seed_strategy_host": _FM + [_P] * 3 + [_I] * 5 + [_P] * 7 + [_I],
     "fgdp_fm_host": _FM + [_I] + [_P] * 6,
+    "fgdp_sweep_fwd": _FM + [_P] * 7 + [_LL] + [_I] * 8 + [_P] * 7 + [_P]
+    + [_P] * 3,
+    "fgdp_sweep_fwd_host": _FM + [_P] * 7 + [_LL] + [_I] * 8 + [_P] * 7
+    + [_P],
+    "fgdp_sweep_bwd": _FM + [_P] * 9 + [_LL] + [_I] * 4 + [_P] * 3 + [_P]
+    + [_P] * 3,
+    "fgdp_sweep_bwd_host": _FM + [_P] * 9 + [_LL] + [_I] * 4 + [_P] * 3
+    + [_P],
     "fgdp_fm_group_host": _FM + [_I] + [_P] * 6,
 }
 
@@ -102,7 +113,7 @@ LAUNCHES = {name: 0 for name in KERNELS}
 # only while a caller has put a list under its name (the smoke run's
 # scale phases sum them into the kernel's time on the main path). The C
 # entry points of SW, the chain loop, the chain filter, kswv, PairHMM and
-# the seeding kernels record the pair themselves, right around the
+# the seeding kernels (the sweep's too) record the pair themselves, right around the
 # launch, so no host time falls between the two events.
 TIMED: dict = {}
 

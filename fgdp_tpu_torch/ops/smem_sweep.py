@@ -21,6 +21,14 @@ wave machines), which tests/test_torch_smem_sweep.py holds them
 against. Seeds resolved by a text walk carry the direct position
 encoding k = -pos - 2. Every loop tests its exit before each step.
 
+The two loops are the JAX package's device loops D9 (fwd_sweep) and D10
+(bwd_entries). On CUDA tensors with whole FM tables each is one launch
+of a hand-written kernel (csrc/sweep_fwd.cu, csrc/sweep_bwd.cu: one
+thread a lane, each lane run to its own end), with no host sync between
+them; on the CPU, and on the fm-sharded mesh's ShardedRows tables, the
+Python loops of torch ops below (`*_plain`) run them. flatten_entries
+and emit_merge have no loop and stay torch ops.
+
 Packed words are uint32 values carried in int64 tensors: torch has no
 uint32 arithmetic, and int64 keeps every shift and mask exact.
 """
@@ -30,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from . import fm as fmops
+from . import kernels
 from .fm import DeviceFMIndex
 from .smem import (SeedBatch, _empty_seeds, _read_base_at, any_by,
                    compact_order, first_true, put_at)
@@ -93,6 +102,10 @@ def read_window(packed, rid, start, lens_l, T: int):
 # Phase A: self-restarting forward sweep
 # --------------------------------------------------------------------------
 
+def _on_card(codes, fm) -> bool:
+    return codes.is_cuda and not fmops.is_sharded(fm)
+
+
 def fwd_sweep(fm: DeviceFMIndex, codes, lens, rid, x0, min_intv, active,
               prev_cap: int, entry_cap: int, ref_codes16,
               restart: bool = True, walk: bool = True):
@@ -107,7 +120,58 @@ def fwd_sweep(fm: DeviceFMIndex, codes, lens, rid, x0, min_intv, active,
     (overflow flagged).
 
     Returns dict(em, en, ek, es [NL, E], ecount, povf, eovf [NL]).
+    D9's kernel on the card, fwd_sweep_plain elsewhere.
     """
+    fn = fwd_sweep_kernel if _on_card(codes, fm) else fwd_sweep_plain
+    return fn(fm, codes, lens, rid, x0, min_intv, active, prev_cap,
+              entry_cap, ref_codes16, restart=restart, walk=walk)
+
+
+def fwd_sweep_kernel(fm: DeviceFMIndex, codes, lens, rid, x0, min_intv,
+                     active, prev_cap: int, entry_cap: int, ref_codes16,
+                     restart: bool = True, walk: bool = True, work=None):
+    """Launch csrc/sweep_fwd.cu (D9) on CUDA tensors; returns what
+    `fwd_sweep_plain` returns. `work`, a zeroed int64[4] on the card,
+    receives the launch's work counters (csrc/seed_waves.cuh)."""
+    B, L = codes.shape
+    NL, E = x0.shape[0], entry_cap
+    dev = codes.device
+    what = "sweep_fwd kernel"
+    _keep, fm_args = fmops.kernel_args(fm, dev, what)
+    arg = lambda x, dt, n: kernels.tensor_arg(x, dev, dt, f"{what}: {n}")
+    codes_c = arg(codes, _I32, "codes")
+    lens_c = arg(lens, _I32, "lens")
+    rid_c, x0_c, mi_c = (arg(t, _I32, n) for t, n in (
+        (rid, "rid"), (x0, "x0"), (min_intv, "min_intv")))
+    act_c = arg(active, torch.bool, "active")
+    words = arg(ref_codes16, torch.int64, "ref_codes16")
+    if lens_c.shape != (B,) or any(t.shape != (NL,) for t in
+                                   (rid_c, mi_c, act_c)):
+        raise ValueError(f"{what}: lens must be [{B}], rid/min_intv/active "
+                         f"[{NL}]")
+    em, en, ek, es = (torch.zeros((NL, E), dtype=_I32, device=dev)
+                      for _ in range(4))
+    ecount = torch.empty(NL, dtype=_I32, device=dev)
+    povf, eovf = (torch.empty(NL, dtype=torch.bool, device=dev)
+                  for _ in range(2))
+    lib = kernels.load("sweep_fwd")
+    kernels.launch(
+        "sweep_fwd", lib.fgdp_sweep_fwd, *fm_args, codes_c.data_ptr(),
+        lens_c.data_ptr(), rid_c.data_ptr(), x0_c.data_ptr(),
+        mi_c.data_ptr(), act_c.data_ptr(), words.data_ptr(),
+        words.shape[0], B, L, NL, E, prev_cap, 2 * fm.n_ref, int(restart),
+        int(walk), em.data_ptr(), en.data_ptr(), ek.data_ptr(),
+        es.data_ptr(), ecount.data_ptr(), povf.data_ptr(), eovf.data_ptr(),
+        kernels.work_ptr(work, dev, what), device=dev)
+    return dict(em=em, en=en, ek=ek, es=es, ecount=ecount, povf=povf,
+                eovf=eovf)
+
+
+def fwd_sweep_plain(fm: DeviceFMIndex, codes, lens, rid, x0, min_intv,
+                    active, prev_cap: int, entry_cap: int, ref_codes16,
+                    restart: bool = True, walk: bool = True):
+    """The plain version: the JAX package's forward loop as a Python loop
+    of torch ops, a host sync a step."""
     NL = x0.shape[0]
     E = entry_cap
     dev = codes.device
@@ -289,12 +353,47 @@ def bwd_entries(fm: DeviceFMIndex, codes, lens, lanes, ref_codes16):
     lanes: dict(rid, anc, n, k, s, mi, on). Returns (m, kf, sf): final
     match start, and the pre-death interval (kf < -1 encodes a direct
     text position for single-suffix lanes). Lanes pausing at s == 1
-    leave the loop and finish in a WALK_T-chunked packed text compare.
-    Both loops compact their stragglers (the occ loop into a
-    quarter-width machine, the walk into a half-width one), as the JAX
-    package does; each lane's result does not depend on when that
-    happens, and the loops test their exit every step.
-    """
+    finish in a WALK_T-chunked packed text compare. D10's kernel on the
+    card, bwd_entries_plain elsewhere."""
+    fn = bwd_entries_kernel if _on_card(codes, fm) else bwd_entries_plain
+    return fn(fm, codes, lens, lanes, ref_codes16)
+
+
+def bwd_entries_kernel(fm: DeviceFMIndex, codes, lens, lanes, ref_codes16,
+                       work=None):
+    """Launch csrc/sweep_bwd.cu (D10) on CUDA tensors; returns what
+    `bwd_entries_plain` returns. `work` as fwd_sweep_kernel's."""
+    B, L = codes.shape
+    NL = lanes["n"].shape[0]
+    dev = codes.device
+    what = "sweep_bwd kernel"
+    _keep, fm_args = fmops.kernel_args(fm, dev, what)
+    arg = lambda x, dt, n: kernels.tensor_arg(x, dev, dt, f"{what}: {n}")
+    codes_c = arg(codes, _I32, "codes")
+    lens_c = arg(lens, _I32, "lens")
+    cols = [arg(lanes[f], _I32, f) for f in ("rid", "anc", "k", "s", "mi")]
+    on_c = arg(lanes["on"], torch.bool, "on")
+    words = arg(ref_codes16, torch.int64, "ref_codes16")
+    if lens_c.shape != (B,) or any(t.shape != (NL,) for t in cols + [on_c]):
+        raise ValueError(f"{what}: lens must be [{B}], the lanes [{NL}]")
+    m, kf, sf = (torch.empty(NL, dtype=_I32, device=dev) for _ in range(3))
+    lib = kernels.load("sweep_bwd")
+    kernels.launch(
+        "sweep_bwd", lib.fgdp_sweep_bwd, *fm_args, codes_c.data_ptr(),
+        lens_c.data_ptr(), *(t.data_ptr() for t in cols), on_c.data_ptr(),
+        words.data_ptr(), words.shape[0], B, L, NL, 2 * fm.n_ref,
+        m.data_ptr(), kf.data_ptr(), sf.data_ptr(),
+        kernels.work_ptr(work, dev, what), device=dev)
+    return m, kf, sf
+
+
+def bwd_entries_plain(fm: DeviceFMIndex, codes, lens, lanes, ref_codes16):
+    """The plain version: the JAX package's backward loops as Python loops
+    of torch ops, a host sync a step. Both loops compact their
+    stragglers (the occ loop into a quarter-width machine, the walk into
+    a half-width one), as the JAX package does; each lane's result does
+    not depend on when that happens, and the loops test their exit every
+    step."""
     NL = lanes["n"].shape[0]
     rid = lanes["rid"]
     mi = lanes["mi"]

@@ -121,10 +121,13 @@ class ShardedAligner:
 
     def __init__(self, pref: PackedReference, n_shards: int = 2,
                  opt: AlignConfig | None = None,
-                 shapes: BatchShapes | None = None, shard_fms=None,
-                 device=None):
+                 shapes: BatchShapes | None = None, lcp=True,
+                 shard_fms=None, device=None):
         """shard_fms: optional pre-built per-shard FMIndex list (built
-        here when None). Each shard's Aligner builds its own LcpTree."""
+        here when None). lcp is each shard's Aligner's: True builds the
+        shard's LcpTree and seeds on the LCP engine; False (or None)
+        seeds on the sweep and builds no tree, the layout for a reference
+        whose trees do not fit the card."""
         self.device = resolve_device(device)
         self.pref = pref                      # global (finalize side)
         self.opt = opt or AlignConfig()
@@ -139,7 +142,7 @@ class ShardedAligner:
             fm = shard_fms[s] if shard_fms is not None \
                 else FMIndex.build(sp.codes)
             self.shards.append(Aligner(sp, fm, opt=self.opt,
-                                       shapes=self.shapes,
+                                       shapes=self.shapes, lcp=lcp,
                                        device=self.device))
 
     def sam_header(self, rg_line=None):

@@ -1769,3 +1769,163 @@ def test_k1_kernel_four_lanes_a_thread_equal_plain(dev, seed_ctx, staged):
             return
     raise AssertionError(f"no launch of four lanes a thread with staged "
                          f"{staged} among the shapes tried")
+
+
+# the sweep's kernels (D9 sweep_fwd, D10 sweep_bwd) at the escalation
+# ladder's shapes, (B, scale) with scale standing for collect_seeds'
+# scale and k2_scale: K1 with prev_cap 20 x scale, E = min(2 L + 16, 192
+# x scale) and 44 x scale backward lanes a read, K2 on the jobs of K1's
+# seeds (2 B scale of them, walk off) with E = prev_cap + 2 and 16 x
+# scale backward lanes a job
+SWEEP_LADDER = ((5, 1), (100, 1), (512, 1), (1024, 2), (2048, 4))
+
+
+def _sweep_equal(got, want, what):
+    pairs = [(got[f], want[f], f) for f in want] if isinstance(want, dict) \
+        else zip(got, want, ("m", "kf", "sf"))
+    for a, b, f in pairs:
+        assert torch.equal(a, b), (what, f)
+
+
+def sweep_phases(dev, t, codes, lens, active, scale, plain):
+    """The sweep's K1 and K2 machines on a batch, piece by piece, on the
+    kernels (plain=False) or the torch-op loops, the other pieces torch
+    ops: the inputs and outputs of each D9 and D10 call, in order."""
+    from fgdp_tpu_torch.align import seeding
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+
+    dfm, dref = t[0], t[1]
+    fwd = sw.fwd_sweep_plain if plain else sw.fwd_sweep
+    bwd = sw.bwd_entries_plain if plain else sw.bwd_entries
+    B, L = codes.shape
+    pc, E = 20 * scale, min(2 * L + 16, 192 * scale)
+    rid = torch.arange(B, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    calls = []
+    fa = (dfm, codes, lens, rid, torch.zeros_like(rid), ones, active, pc,
+          E, dref.codes16)
+    fw = fwd(*fa, restart=True)
+    lanes, _ = sw.flatten_entries(fw, rid, ones, E, B * 44 * scale)
+    bw = bwd(dfm, codes, lens, lanes, dref.codes16)
+    calls += [("K1 D9", fw), ("K1 D10", bw)]
+    k1 = sw.emit_merge(lanes, *bw, OPT.min_seed_len, B, 160 * scale)
+    split_len = int(OPT.min_seed_len * OPT.split_factor + 0.499)
+    _, k_read, job_x, job_mi, k_on, _ = seeding.k2_jobs(
+        k1, OPT, split_len, B * 2 * scale)
+    fw2 = fwd(dfm, codes, lens, k_read, job_x, job_mi, k_on, pc, pc + 2,
+              dref.codes16, restart=False, walk=False)
+    lanes2, _ = sw.flatten_entries(fw2, k_read, job_mi, pc + 2,
+                                   k_read.shape[0] * 16 * scale)
+    bw2 = bwd(dfm, codes, lens, lanes2, dref.codes16)
+    calls += [("K2 D9", fw2), ("K2 D10", bw2)]
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,scale", SWEEP_LADDER)
+def test_sweep_kernels_equal_plain(dev, seed_ctx, B, scale):
+    """D9 and D10 on the card, each launched once a call (counted) and
+    exactly equal to its torch-op loop at every stage of the sweep's K1
+    and K2."""
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    batch = [torch.as_tensor(a, device=dev)
+             for a in seed_reads(g, B, 151, seed=B + scale)]
+    n0 = dict(kernels.LAUNCHES)
+    got = sweep_phases(dev, t, *batch, scale, plain=False)
+    for name in ("sweep_fwd", "sweep_bwd"):
+        assert kernels.LAUNCHES[name] == n0[name] + 2, name
+    want = sweep_phases(dev, t, *batch, scale, plain=True)
+    for (what, a), (_, b) in zip(got, want):
+        _sweep_equal(a, b, what)
+    assert int(got[0][1]["ecount"].sum()) > 0
+    assert bool((got[1][1][1] < -1).any())      # walked single suffixes
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_tight_caps_equal_plain(dev, seed_ctx):
+    """D9 at caps where povf and eovf fire, D10 on a cut pool (drop_ovf),
+    equal to the torch-op loops."""
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = (torch.as_tensor(a, device=dev)
+                           for a in seed_reads(g, 256, 151, seed=4))
+    B = codes.shape[0]
+    rid = torch.arange(B, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    fa = (t[0], codes, lens, rid, torch.zeros_like(rid), ones, active, 3,
+          12, t[1].codes16)
+    got, want = sw.fwd_sweep(*fa), sw.fwd_sweep_plain(*fa)
+    _sweep_equal(got, want, "D9")
+    assert bool(got["povf"].any()) and bool(got["eovf"].any())
+    lanes, drop = sw.flatten_entries(got, rid, ones, 12, 2 * B)
+    assert bool(drop.any())
+    _sweep_equal(sw.bwd_entries(t[0], codes, lens, lanes, t[1].codes16),
+                 sw.bwd_entries_plain(t[0], codes, lens, lanes,
+                                      t[1].codes16), "D10")
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_time_each_launch_when_asked(dev, seed_ctx):
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = (torch.as_tensor(a, device=dev)
+                           for a in seed_reads(g, 64, 151, seed=3))
+    rid = torch.arange(64, dtype=torch.int32, device=dev)
+    ones = torch.ones(64, dtype=torch.int32, device=dev)
+    fa = (t[0], codes, lens, rid, torch.zeros_like(rid), ones, active, 20,
+          192, t[1].codes16)
+    for name in ("sweep_fwd", "sweep_bwd"):
+        kernels.TIMED[name] = []
+    try:
+        fw = sw.fwd_sweep(*fa)
+        lanes, _ = sw.flatten_entries(fw, rid, ones, 192, 64 * 44)
+        sw.bwd_entries(t[0], codes, lens, lanes, t[1].codes16)
+        pairs = {n: kernels.TIMED[n] for n in ("sweep_fwd", "sweep_bwd")}
+    finally:
+        for name in ("sweep_fwd", "sweep_bwd"):
+            kernels.TIMED.pop(name, None)
+    torch.cuda.synchronize()
+    for name, p in pairs.items():
+        assert len(p) == 1 and p[0][0].elapsed_time(p[0][1]) > 0, name
+    # the work counters: table bytes, the most dependent gathers of a
+    # lane, lane steps, the longest lane's steps
+    wf = torch.zeros(4, dtype=torch.int64, device=dev)
+    wb = torch.zeros(4, dtype=torch.int64, device=dev)
+    sw.fwd_sweep_kernel(*fa, work=wf)
+    sw.bwd_entries_kernel(t[0], codes, lens, lanes, t[1].codes16, work=wb)
+    for w in (wf.tolist(), wb.tolist()):
+        gathered, chain, steps, longest = w
+        assert steps >= longest > 0 and gathered > 0 and chain > 0
+
+
+@pytest.mark.cuda
+def test_sweep_kernels_make_no_host_sync_between_launches(dev, seed_ctx):
+    """D9, the entries' flatten and D10 on the card run with CUDA's sync
+    debug mode set to error: no .item(), bool() or int() on a card tensor
+    between the two launches."""
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, active = (torch.as_tensor(a, device=dev)
+                           for a in seed_reads(g, 128, 151, seed=5))
+    rid = torch.arange(128, dtype=torch.int32, device=dev)
+    ones = torch.ones(128, dtype=torch.int32, device=dev)
+    x0 = torch.zeros_like(rid)
+    sw.fwd_sweep(t[0], codes, lens, rid, x0, ones, active, 20, 192,
+                 t[1].codes16)            # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fw = sw.fwd_sweep(t[0], codes, lens, rid, x0, ones, active, 20, 192,
+                          t[1].codes16)
+        lanes, _ = sw.flatten_entries(fw, rid, ones, 192, 128 * 44)
+        m, kf, sf = sw.bwd_entries(t[0], codes, lens, lanes, t[1].codes16)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(fw["ecount"].sum()) > 0 and bool((kf < -1).any())
