@@ -144,7 +144,9 @@ fails loudly:
               and D10 sweep_bwd launches and kernel ms, each launch held
               exactly against its torch-op loop, P1 and P2 launches and
               kernel ms), SAM equal to the LCP aligner's on the reads both
-              ladders resolve; the sweep's seeding split of one primary
+              ladders resolve, and the LCP aligner's align_batch (each
+              batch's first read as id0) equal to scale's stream_mem on
+              them; the sweep's seeding split of one primary
               batch (D9, flatten, D10, emit for K1 and K2, K3, merge,
               each ended by a sync; kernels against torch ops), D9's and
               D10's ms, bytes bound and serial bound (probes.chase); the
@@ -2229,6 +2231,9 @@ def phase_engines(dev, ctx, batch):
     sweep = Aligner(pref, fm, shapes=shapes, lcp=False, device=dev)
     batches = list(cli.read_batches([ctx["fq"]], batch))
     n_all = sum(len(b[1]) for b in batches)
+    # each batch's first read index, as stream_mem passes it: the read
+    # ids break ties between equal hits (hash_64 in finalize)
+    id0s = [int(i) for i in np.cumsum([0] + [len(b[1]) for b in batches])]
     kernels.reset_launches()
     kernels.TIMED["sw_extend"] = []
     esc = EscCounter(sweep, SWEEP_KERNELS)
@@ -2236,7 +2241,8 @@ def phase_engines(dev, ctx, batch):
         with ChainLaunches() as p2, SweepLaunches(esc) as d910:
             _sync(dev)
             t0 = time.time()
-            lines = [ln for b in batches for ln in sweep.align_batch(*b)]
+            lines = [ln for b, i0 in zip(batches, id0s)
+                     for ln in sweep.align_batch(*b, id0=i0)]
             _sync(dev)
             wall = time.time() - t0
         sw_ms = sum(s.elapsed_time(e) for s, e in kernels.TIMED["sw_extend"])
@@ -2249,7 +2255,8 @@ def phase_engines(dev, ctx, batch):
     try:
         _sync(dev)
         t0 = time.time()
-        lcp_lines = [ln for b in batches for ln in lcp_al.align_batch(*b)]
+        lcp_lines = [ln for b, i0 in zip(batches, id0s)
+                     for ln in lcp_al.align_batch(*b, id0=i0)]
         _sync(dev)
         lcp_wall = time.time() - t0
     finally:
@@ -2261,9 +2268,13 @@ def phase_engines(dev, ctx, batch):
                 if not Unresolved.has(q)]
     differ = [n for n in resolved if ours.get(n) != theirs.get(n)]
     streamed = by_qname(ctx["lines"])
-    log(f"[engines] the LCP aligner's SAM by align_batch against scale's "
-        f"stream_mem: {sum(theirs.get(n) != streamed.get(n) for n in resolved)}"
-        f" of the {len(resolved)} resolved reads differ")
+    unlike = [n for n in resolved if theirs.get(n) != streamed.get(n)]
+    log(f"[engines] the LCP aligner's SAM by align_batch (id0 each batch's "
+        f"first read) against scale's stream_mem: {len(unlike)} of the "
+        f"{len(resolved)} resolved reads differ {unlike[:4]}")
+    if unlike:
+        raise AssertionError("the LCP aligner's align_batch differs from "
+                             "its stream_mem")
     for n in differ[:3]:
         log(f"[engines] differs: {n}: sweep {[ln[:160] for ln in ours.get(n, [])]}"
             f" LCP {[ln[:160] for ln in theirs.get(n, [])]}")

@@ -323,6 +323,26 @@ FGDP_HD void fm_forward_extend2_group(const FmView& fm, const Group& grp,
   k2 = k1 + (s1 - sum) + before;
 }
 
+#ifdef __CUDACC__
+// The group policy of fm_forward_extend2_group on the card: the 16 lanes
+// of a half warp (K3's and D9's kernels add how they stage a read).
+struct FmHalfWarp {
+  int g;           // lane in the group
+  unsigned mask;   // the group's half of the warp
+  template <class F>
+  __host__ __device__ int each(const F& f) const { return f(g); }
+  // v of group lane src, in every lane of the group
+  __host__ __device__ int get(int v, int src) const {
+#ifdef __CUDA_ARCH__
+    return __shfl_sync(mask, v, src, FM_GROUP);
+#else
+    return v;
+#endif
+  }
+  __host__ __device__ bool lead() const { return g == 0; }
+};
+#endif
+
 // bi-interval of the one-base pattern c
 FGDP_HD void fm_init_interval(const FmView& fm, int c, int& k, int& l,
                               int& s) {

@@ -8,7 +8,8 @@
 // primitives (fm.cuh) one interval at a time, and the seeding wave machines (smem_lcp.cuh,
 // k2_lcp.cuh) with every lane in one thread and the counts taken on the
 // host step by step, the sweep's two phases (sweep_fwd.cuh,
-// sweep_bwd.cuh) one lane after another, so the logic can be
+// sweep_bwd.cuh) one lane after another (D9's lane as its group of 16
+// lockstep lanes), so the logic can be
 // held against the plain PyTorch versions where there is no nvcc. It
 // builds with -ffp-contract=off, so that no multiply and add fuse into
 // one rounding, as on the card. The port's CPU path never calls it; it
@@ -669,6 +670,18 @@ struct HostGroup16 {
   void stage(signed char* buf, const int* row, int L) const {
     for (int u = 0; u < L; ++u) buf[u] = k3_code8(row[u]);
   }
+  // D9's anchor exits, counted where asked for
+  long long* exits = nullptr;
+  void note(int e) const {
+    if (exits != nullptr) ++exits[e];
+  }
+  // D9's staged row from word w0 on; the words before it all N of code
+  // 1 (read as 4), so that a lane reading one would differ
+  void stage(LcpWord* buf, const int* row, int L, int w0) const {
+    for (int w = 0; w < sweep_row_words(L); ++w)
+      buf[w] = w < w0 ? LcpWord{LCP_EVEN, LCP_EVEN}
+                      : lcp_stage_row_word(row, L, w);
+  }
 };
 
 // The group ranks and forward_extend2 on n intervals: out int32[n,
@@ -720,31 +733,49 @@ extern "C" int fgdp_seed_strategy_host(
   return 0;
 }
 
-// D9 (fgdp_sweep_fwd's arguments but the events and stream), one lane
-// after another
+// D9 (fgdp_sweep_fwd's arguments but the events and stream, and
+// `staged`: 1 reads the codes from the group's staged row, 0 where they
+// lie, -1 as the card chooses by L; `exits` int64[SWEEP_EXITS] or null
+// counts how the anchors end), each lane's group of 16 lanes in
+// lockstep, one lane after another
+template <bool STAGED>
+static void sweep_fwd_host_lane(const SweepFwdArgs& A, int t, int restart,
+                                int walk, LcpWord* buf, long long* exits) {
+  const HostGroup16 grp{exits};
+  if (restart && walk)
+    sweep_fwd_lane<true, true, STAGED>(A, t, grp, buf);
+  else if (restart)
+    sweep_fwd_lane<true, false, STAGED>(A, t, grp, buf);
+  else if (walk)
+    sweep_fwd_lane<false, true, STAGED>(A, t, grp, buf);
+  else
+    sweep_fwd_lane<false, false, STAGED>(A, t, grp, buf);
+}
+
 extern "C" int fgdp_sweep_fwd_host(
     FM_HOST_ARGS, const int* codes, const int* lens, const int* rid,
     const int* x0, const int* min_intv, const unsigned char* active,
     const long long* words, long long nwords, int B, int L, int NL, int E,
     int prev_cap, int l2ref, int restart, int walk, int* em, int* en,
     int* ek, int* es, int* ecount, unsigned char* povf, unsigned char* eovf,
-    long long* work) {
+    long long* work, int staged, long long* exits) {
   const SweepFwdArgs A{FM_VIEW, codes, lens,     rid,   x0,     min_intv,
                        active,  words, nwords,   B,     L,      NL,
                        E,       prev_cap, l2ref, em,    en,     ek,
                        es,      ecount, povf,    eovf,  work};
+  std::vector<LcpWord> buf((size_t)sweep_row_words(L) + 1);
+  const bool st = staged < 0 ? sweep_staged(L) : staged != 0;
   for (int t = 0; t < NL; ++t) {
-    if (restart && walk)
-      sweep_fwd_lane<true, true>(A, t);
-    else if (restart)
-      sweep_fwd_lane<true, false>(A, t);
-    else if (walk)
-      sweep_fwd_lane<false, true>(A, t);
+    if (st)
+      sweep_fwd_host_lane<true>(A, t, restart, walk, buf.data(), exits);
     else
-      sweep_fwd_lane<false, false>(A, t);
+      sweep_fwd_host_lane<false>(A, t, restart, walk, buf.data(), exits);
   }
   return 0;
 }
+
+// 1 where the card stages D9's codes at row length L, else 0
+extern "C" int fgdp_sweep_fwd_staged_host(int L) { return sweep_staged(L); }
 
 // D10 (fgdp_sweep_bwd's arguments but the events and stream), one lane
 // after another

@@ -44,20 +44,7 @@
 #define K3_GROUPS 8   // reads (groups) a block
 
 // The group policy on the card: the 16 lanes of a half warp.
-struct K3Group {
-  int g;           // lane in the group
-  unsigned mask;   // the group's half of the warp
-  template <class F>
-  __host__ __device__ int each(const F& f) const { return f(g); }
-  // v of group lane src, in every lane of the group
-  __host__ __device__ int get(int v, int src) const {
-#ifdef __CUDA_ARCH__
-    return __shfl_sync(mask, v, src, FM_GROUP);
-#else
-    return v;
-#endif
-  }
-  __host__ __device__ bool lead() const { return g == 0; }
+struct K3Group : FmHalfWarp {
   // the read's codes into the group's buffer, clamped to -1..4
   __host__ __device__ void stage(signed char* buf, const int* row,
                                  int L) const {
@@ -73,8 +60,8 @@ __global__ void __launch_bounds__(K3_GROUPS * FM_GROUP)
     seed_strategy_kernel(K3Args A, int staged) {
   extern __shared__ signed char k3_buf[];
   const int gb = threadIdx.x / FM_GROUP;
-  const K3Group grp{(int)(threadIdx.x & (FM_GROUP - 1)),
-                    0xFFFFu << (threadIdx.x & 16)};
+  const K3Group grp{{(int)(threadIdx.x & (FM_GROUP - 1)),
+                     0xFFFFu << (threadIdx.x & 16)}};
   signed char* buf = staged ? k3_buf + (long long)gb * A.L : nullptr;
   for (int rd = blockIdx.x * K3_GROUPS + gb; rd < A.B;
        rd += gridDim.x * K3_GROUPS)

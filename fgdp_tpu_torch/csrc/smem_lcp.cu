@@ -78,17 +78,6 @@
 #define LCP_THREADS 64        // threads a block
 #define LCP_STAGE_BYTES (48 * 1024)
 
-// x's bits j at bits 2j
-__device__ __forceinline__ lcp_u64 lcp_spread(unsigned x) {
-  lcp_u64 v = x;
-  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
-  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
-  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
-  v = (v | (v << 2)) & 0x3333333333333333ull;
-  v = (v | (v << 1)) & 0x5555555555555555ull;
-  return v;
-}
-
 // A warp stages its 32 R reads (rows wbase .. wbase + 32 R - 1 of the
 // block, read first + row), word by word: lane j loads position 32 w + j
 // of each of 32 reads (32 coalesced loads in flight), three ballots make

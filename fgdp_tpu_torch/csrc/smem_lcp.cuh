@@ -76,18 +76,35 @@ FGDP_HD void lcp_stage_code(int c, int& code, int& n) {
   code = c >= 4 ? 1 : (c < 0 ? 0 : c);
 }
 
-// word w of read `id`'s staged row (positions at or past L: code 0, no N)
-FGDP_HD LcpWord lcp_stage_word(const LcpArgs& A, int id, int w) {
+// x's bits j at bits 2j
+FGDP_HD lcp_u64 lcp_spread(unsigned x) {
+  lcp_u64 v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  v = (v | (v << 1)) & 0x5555555555555555ull;
+  return v;
+}
+
+// word w of a code row of L positions in the staged form (positions at
+// or past L: code 0, no N); the host twin of D9 stages its rows so
+FGDP_HD LcpWord lcp_stage_row_word(const int* row, int L, int w) {
   LcpWord o{0, 0};
   for (int j = 0; j < 32; ++j) {
     const int p = 32 * w + j;
-    if (p >= A.L) break;
+    if (p >= L) break;
     int code, n;
-    lcp_stage_code(fgdp_ld(A.codes + (long long)id * A.L + p), code, n);
+    lcp_stage_code(fgdp_ld(row + p), code, n);
     o.c |= (lcp_u64)code << (2 * j);
     o.n |= (lcp_u64)n << (2 * j);
   }
   return o;
+}
+
+// word w of read `id`'s staged row
+FGDP_HD LcpWord lcp_stage_word(const LcpArgs& A, int id, int w) {
+  return lcp_stage_row_word(A.codes + (long long)id * A.L, A.L, w);
 }
 
 // the 64 bits of (lo, hi) from bit sh (0..63) on: bits [sh, sh + 64) of
@@ -188,6 +205,15 @@ struct LcpInPlace {
   }
 };
 
+// the window's 64 slots from the five packed words v (words start >> 4
+// on, each a uint32 of 16 codes)
+FGDP_HD void lcp_text_slots(const lcp_u64 v[5], int start, lcp_u64 t[2]) {
+  const int sh = 2 * (start & 15);
+  const lcp_u64 a = v[0] | (v[1] << 32), b = v[2] | (v[3] << 32);
+  t[0] = lcp_funnel(a, b, sh);
+  t[1] = lcp_funnel(b, v[4], sh);
+}
+
 // the text's codes at [start, start + 64) (slot i = position start + i)
 // from the five packed words (of `nwords`) that cover them, each index
 // clamped to the table as packed_window's gather is; the sweep's kernels
@@ -205,10 +231,7 @@ FGDP_HD void lcp_text_window(const long long* words, long long nwords,
     v[k] = (unsigned)words[w];
 #endif
   }
-  const int sh = 2 * (start & 15);
-  const lcp_u64 a = v[0] | (v[1] << 32), b = v[2] | (v[3] << 32);
-  t[0] = lcp_funnel(a, b, sh);
-  t[1] = lcp_funnel(b, v[4], sh);
+  lcp_text_slots(v, start, t);
 }
 
 FGDP_HD void lcp_lane_init(const LcpArgs& A, LcpLane& st, int id) {

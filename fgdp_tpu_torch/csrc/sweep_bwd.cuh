@@ -36,6 +36,26 @@ struct SweepBwdArgs {
   long long* work;                // int64[4] (seed_waves.cuh) or null
 };
 
+// The bad slots of a 64-slot compare of the read window at rstart (the
+// codes read where they lie) with the text window at tstart: a
+// mismatch, a read slot that reads 4 (rbad), a text position outside
+// [0, l2ref)
+FGDP_HD void sweep_compare(const int* codes, int L, int rid, int len,
+                           const long long* words, long long nwords,
+                           int l2ref, int rstart, int tstart,
+                           lcp_u64 bad[2], lcp_u64 rbad[2]) {
+  lcp_u64 rc[2], tc[2], tout[2];
+  const SweepCodes<false> q{nullptr, codes + (long long)rid * L, L, 0};
+  q.window(len, rstart, rc, rbad);
+  lcp_text_window(words, nwords, tstart, tc);
+  lcp_slots_outside((long long)tstart, l2ref, tout);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const lcp_u64 x = rc[h] ^ tc[h];
+    bad[h] = ((x | (x >> 1)) & LCP_EVEN) | rbad[h] | tout[h];
+  }
+}
+
 FGDP_HD void sweep_bwd_lane(const SweepBwdArgs& A, int lane) {
   const int rid = fgdp_ld(A.rid + lane);
   const bool on = A.on[lane] != 0;

@@ -18,7 +18,8 @@ per-job, per-read and per-pair logic as a host library (one serial lane,
 or 32 lanes in lockstep for the register paths of the chain loop, kswv
 and PairHMM and for the chain filter; the seeding wave machines with every lane in one thread and
 their counts taken step by step; the sweep's two phases one lane after
-another), which the CPU tests hold against the plain PyTorch versions
+another, D9's lane as its group of 16 lockstep lanes), which the CPU
+tests hold against the plain PyTorch versions
 (tests/test_torch_sweep_kernels.py for D9 and D10). The port never runs
 it.
 """
@@ -94,7 +95,9 @@ _SIGS = {
     "fgdp_sweep_fwd": _FM + [_P] * 7 + [_LL] + [_I] * 8 + [_P] * 7 + [_P]
     + [_P] * 3,
     "fgdp_sweep_fwd_host": _FM + [_P] * 7 + [_LL] + [_I] * 8 + [_P] * 7
-    + [_P],
+    + [_P, _I, _P],
+    "fgdp_sweep_fwd_staged": [_I],
+    "fgdp_sweep_fwd_staged_host": [_I],
     "fgdp_sweep_bwd": _FM + [_P] * 9 + [_LL] + [_I] * 4 + [_P] * 3 + [_P]
     + [_P] * 3,
     "fgdp_sweep_bwd_host": _FM + [_P] * 9 + [_LL] + [_I] * 4 + [_P] * 3

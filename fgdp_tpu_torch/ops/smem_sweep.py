@@ -23,8 +23,9 @@ encoding k = -pos - 2. Every loop tests its exit before each step.
 
 The two loops are the JAX package's device loops D9 (fwd_sweep) and D10
 (bwd_entries). On CUDA tensors with whole FM tables each is one launch
-of a hand-written kernel (csrc/sweep_fwd.cu, csrc/sweep_bwd.cu: one
-thread a lane, each lane run to its own end), with no host sync between
+of a hand-written kernel (csrc/sweep_fwd.cu: a 16-lane group a lane,
+its read's codes staged in shared memory; csrc/sweep_bwd.cu: one thread
+a lane; each lane run to its own end), with no host sync between
 them; on the CPU, and on the fm-sharded mesh's ShardedRows tables, the
 Python loops of torch ops below (`*_plain`) run them. flatten_entries
 and emit_merge have no loop and stay torch ops.

@@ -17,7 +17,9 @@ latency plus the cheapest of the barriers at their launch's grid.
     python -m fgdp_tpu_torch.probes.chase
 
 needs the CUDA card; it chases a random table of the scale index's size
-(288,000 rows, 27.6 MB) and prints the latencies. `chase` takes the
+(288,000 rows, 27.6 MB) and prints the latencies, then the cold latency
+on a random table of HUMAN_ROWS made on the card (17.28 GB, about the
+occ rows of a 3.1 Gb index, whose gathers miss L2). `chase` takes the
 kernel for CUDA tensors and the plain version (torch ops, one gather a
 hop) for CPU tensors.
 """
@@ -34,6 +36,7 @@ ROW = 24          # ints a checkpoint row
 BARRIERS = {"coop": 1, "gridbar": 2, "wide": 3}   # the kernel's sync modes
 HOPS = 2048       # hops of a timed lone chain
 NBLOCKS = 288_000  # rows of the scale index's table (4.6 Mb, both strands)
+HUMAN_ROWS = 180_000_000  # about a 3.1 Gb index's occ rows (18.6 GB)
 
 
 def _start(p0, n, nblocks):
@@ -165,6 +168,13 @@ def main():
         print(f"[chase] grid barrier at {blocks} x 64 threads: " + ", ".join(
             f"{sync} {barrier_us(occ, blocks, 64, sync=sync):.3f} us"
             for sync in BARRIERS))
+    del occ
+    g = torch.Generator(device=dev).manual_seed(0)
+    big = torch.randint(-2**31, 2**31 - 1, (HUMAN_ROWS, ROW),
+                        dtype=torch.int32, device=dev, generator=g)
+    cold, _ = latency_us(big)
+    print(f"[chase] one chain alone on {HUMAN_ROWS} random rows "
+          f"({big.numel() * 4 / 1e9:.2f} GB): cold {cold:.3f} us a hop")
 
 
 if __name__ == "__main__":

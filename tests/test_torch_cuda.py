@@ -1929,3 +1929,99 @@ def test_sweep_kernels_make_no_host_sync_between_launches(dev, seed_ctx):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(fw["ecount"].sum()) > 0 and bool((kf < -1).any())
+
+
+# D9 stages its lanes' codes in shared memory while eight groups' rows
+# fit in 48 KB (csrc/sweep_fwd.cuh), L up to 12,288, and reads longer
+# rows where they lie
+SWEEP_STAGED_MAX_L = 12_288
+
+
+def sweep_cut_off_batch(g, L):
+    """seed_reads' 256 reads in code rows of length L, the first two
+    replaced by a copy of L - 10 genome bases (every 97th changed) and one
+    of 3,000 bases with an N run."""
+    codes, lens, active = seed_reads(g, 256, 151, seed=L)
+    rows = np.full((256, L), 4, np.int32)
+    rows[:, :151] = codes
+    for i, n in enumerate((L - 10, 3000)):
+        s = g[1000:1000 + n].astype(np.int32).copy()
+        s[::97] = (s[::97] + 1) % 4
+        if i:
+            s[1500:1530] = 4
+        rows[i] = 4
+        rows[i, :n] = s
+        lens[i], active[i] = n, True
+    return rows, lens, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [SWEEP_STAGED_MAX_L, SWEEP_STAGED_MAX_L + 1])
+def test_sweep_fwd_kernel_both_sides_of_the_staging_cut_off(dev, seed_ctx,
+                                                            L):
+    """D9 staged (L 12,288) and reading its codes where they lie (L
+    12,289), with a read of nearly L bases: the sweep's K1 and K2 stages
+    and D9 at tight caps (povf and eovf fire) exactly equal to the
+    torch-op loops."""
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    assert kernels.load("sweep_fwd").fgdp_sweep_fwd_staged(L) == \
+        int(L <= SWEEP_STAGED_MAX_L)
+    codes, lens, active = (torch.as_tensor(a, device=dev)
+                           for a in sweep_cut_off_batch(g, L))
+    got = sweep_phases(dev, t, codes, lens, active, 1, plain=False)
+    want = sweep_phases(dev, t, codes, lens, active, 1, plain=True)
+    for (what, a), (_, b) in zip(got, want):
+        _sweep_equal(a, b, what)
+    B = codes.shape[0]
+    rid = torch.arange(B, dtype=torch.int32, device=dev)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    fa = (t[0], codes, lens, rid, torch.zeros_like(rid), ones, active, 3,
+          12, t[1].codes16)
+    tight = sw.fwd_sweep(*fa)
+    _sweep_equal(tight, sw.fwd_sweep_plain(*fa), "D9 tight")
+    assert bool(tight["povf"].any()) and bool(tight["eovf"].any())
+    assert int(got[0][1]["ecount"][0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [151, SWEEP_STAGED_MAX_L + 1])
+def test_sweep_fwd_kernel_ends_the_never_ending_lane(dev, seed_ctx, L):
+    """K2 lanes with min_intv 1 and walk off from every read's start: a
+    lane that narrows to one suffix takes neither branch, which the
+    torch-op loop would step forever; on the card it ends with eovf set,
+    and every lane equals D9's host twin (staged at L 151, in place past
+    the cut-off)."""
+    from fgdp_tpu_torch.ops import fm as fmops
+    from fgdp_tpu_torch.ops import smem_sweep as sw
+
+    g, index = seed_ctx
+    t = seed_tables(index, dev)
+    codes, lens, _ = seed_reads(g, 64, 151, seed=8)
+    rows = np.full((64, L), 4, np.int32)
+    rows[:, :151] = codes
+    B = 64
+    args = [rows, lens, np.arange(B, dtype=np.int32), np.zeros(B, np.int32),
+            np.ones(B, np.int32), np.ones(B, bool)]
+    got = sw.fwd_sweep(t[0], *(torch.as_tensor(a, device=dev) for a in args),
+                       20, 22, t[1].codes16, restart=False, walk=False)
+    cpu = seed_tables(index, "cpu")
+    _keep, fm_args = fmops.kernel_args(cpu[0], torch.device("cpu"), "twin")
+    c16 = cpu[1].codes16.contiguous()
+    ins = [torch.as_tensor(a).contiguous() for a in args]
+    want = dict(em=torch.zeros((B, 22), dtype=torch.int32),
+                en=torch.zeros((B, 22), dtype=torch.int32),
+                ek=torch.zeros((B, 22), dtype=torch.int32),
+                es=torch.zeros((B, 22), dtype=torch.int32),
+                ecount=torch.zeros(B, dtype=torch.int32),
+                povf=torch.zeros(B, dtype=torch.bool),
+                eovf=torch.zeros(B, dtype=torch.bool))
+    assert kernels.build_host_twin().fgdp_sweep_fwd_host(
+        *fm_args, *(a.data_ptr() for a in ins), c16.data_ptr(),
+        c16.shape[0], B, L, B, 22, 20, 2 * cpu[0].n_ref, 0, 0,
+        *(want[f].data_ptr() for f in want), None, -1, None) == 0
+    for f in want:
+        assert torch.equal(got[f].cpu(), want[f]), f
+    assert bool(got["eovf"].any())

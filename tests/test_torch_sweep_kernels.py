@@ -43,6 +43,12 @@ from test_torch_smem_wave import both
 
 B, L = 40, 160
 FWD = ("em", "en", "ek", "es", "ecount", "povf", "eovf")
+# how an anchor ends, in csrc/sweep_fwd.cuh's order (SWEEP_W_MIS ...)
+EXITS = ("walk mismatch", "walk read N", "walk read end", "off0", "amb0",
+         "die0", "off1", "amb1", "die1", "neither branch")
+# the longest code row whose lanes the card stages (csrc/sweep_fwd.cuh:
+# eight groups' rows of 16 bytes a 32 positions in 48 KB)
+STAGED_MAX_L = 12_288
 # name: (restart, walk, prev_cap, entry_cap, bwd lanes a source lane);
 # entry_cap 0 is K1's auto cap 2 L + 16, K2's prev_cap + 2
 CASES = {
@@ -101,8 +107,11 @@ def lane_inputs(ctx, restart, walk):
 
 
 def twin_fwd(dfm, codes16, codes, lens, rid, x0, mi, active, prev_cap, E,
-             restart, walk):
-    """D9's host twin on CPU tensors: fwd_sweep's dict."""
+             restart, walk, staged=-1, exits=None):
+    """D9's host twin on CPU tensors: fwd_sweep's dict; `staged` 1 reads
+    the codes from the group's staged row, 0 where they lie, -1 as the
+    card chooses by L; `exits`, a zeroed int64[len(EXITS)], counts how
+    the anchors end."""
     NL = x0.shape[0]
     _keep, fm_args = fmops.kernel_args(dfm, torch.device("cpu"), "twin")
     i32 = lambda a: a.to(torch.int32).contiguous()
@@ -119,7 +128,7 @@ def twin_fwd(dfm, codes16, codes, lens, rid, x0, mi, active, prev_cap, E,
         *fm_args, *(a.data_ptr() for a in ins[:7]), codes16.shape[0],
         codes.shape[0], codes.shape[1], NL, E, prev_cap, 2 * dfm.n_ref,
         int(restart), int(walk), *(out[f].data_ptr() for f in FWD),
-        None) == 0
+        None, staged, None if exits is None else exits.data_ptr()) == 0
     return out
 
 
@@ -209,19 +218,27 @@ def test_sweep_twins_equal_torch_and_jax(ctx, case):
                      & (want["es"][B - 1, :last] == 1)).any())
 
 
-def test_sweep_fwd_twin_ends_a_lane_the_loop_never_ends(ctx):
-    """A K2 lane with min_intv 1 and walk off that narrows to one suffix
-    then takes neither branch: the torch-op loop would step it forever,
-    the kernel's logic ends it with eovf set (its read then escalates)."""
-    t = ctx["t"]
+def never_ending_lane(ctx):
+    """Two K2 lanes (min_intv 1, to run with walk off) of a read of 100
+    bases or more: fwd_sweep's inputs from codes to active."""
     i = int(np.flatnonzero(ctx["active"] & (ctx["lens"] >= 100)
                            & (np.arange(B) % 13 != 6))[0])
     rid = torch.tensor([i, i], dtype=torch.int32)
-    args = (torch.as_tensor(ctx["codes"]), torch.as_tensor(ctx["lens"]),
+    return (torch.as_tensor(ctx["codes"]), torch.as_tensor(ctx["lens"]),
             rid, torch.tensor([0, 40], dtype=torch.int32),
             torch.ones(2, dtype=torch.int32), torch.ones(2, dtype=torch.bool))
-    out = twin_fwd(t["dfm"], t["codes16"], *args, 20, 22, False, False)
-    assert bool(out["eovf"].any()) and bool((out["ecount"] > 0).all())
+
+
+def test_sweep_fwd_twin_ends_a_lane_the_loop_never_ends(ctx):
+    """A K2 lane with min_intv 1 and walk off that narrows to one suffix
+    then takes neither branch: the torch-op loop would step it forever,
+    the kernel's logic ends it with eovf set (its read then escalates),
+    staged and in place."""
+    t = ctx["t"]
+    for staged in (1, 0):
+        out = twin_fwd(t["dfm"], t["codes16"], *never_ending_lane(ctx), 20,
+                       22, False, False, staged=staged)
+        assert bool(out["eovf"].any()) and bool((out["ecount"] > 0).all())
 
 
 def test_sweep_dispatch_keeps_the_torch_op_loops_on_the_cpu(ctx,
@@ -239,3 +256,195 @@ def test_sweep_dispatch_keeps_the_torch_op_loops_on_the_cpu(ctx,
         torch.as_tensor(ctx["lens"][:4]), torch.ones(4, dtype=torch.int32),
         torch.ones(4, dtype=torch.bool), 19, 64, 20)
     assert calls == [] and int(seeds.count.sum()) > 0
+
+
+_PLAIN = {}
+
+
+def plain_case(ctx, case):
+    """(the case's torch-tensor inputs, fwd_sweep_plain's dict), once a
+    case."""
+    restart, walk, prev_cap, E, _ = CASES[case]
+    E = E or (2 * L + 16 if restart else prev_cap + 2)
+    if case not in _PLAIN:
+        rid, x0, mi, active = (torch.as_tensor(a) for a in
+                               lane_inputs(ctx, restart, walk))
+        targs = (torch.as_tensor(ctx["codes"]), torch.as_tensor(ctx["lens"]),
+                 rid, x0, mi, active)
+        _PLAIN[case] = targs, smem_sweep.fwd_sweep_plain(
+            ctx["t"]["dfm"], *targs, prev_cap, E, ctx["t"]["codes16"],
+            restart=restart, walk=walk)
+    return _PLAIN[case] + ((prev_cap, E, restart, walk),)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_sweep_fwd_twin_in_place_equals_torch(ctx, case):
+    """D9's group twin reading the codes where they lie (the card's path
+    past the staging cut-off) and from the staged row, each exactly equal
+    to the torch-op loop."""
+    targs, want, (prev_cap, E, restart, walk) = plain_case(ctx, case)
+    t = ctx["t"]
+    for staged in (0, 1):
+        got = twin_fwd(t["dfm"], t["codes16"], *targs, prev_cap, E, restart,
+                       walk, staged=staged)
+        for f in FWD:
+            _eq(want[f], got[f], f"{case} staged {staged}: {f}")
+
+
+def test_sweep_fwd_twin_takes_every_exit(ctx):
+    """Over the cases' lanes and the never-ending lane, the group twin's
+    anchors end at every exit of the logic at least once (the walk's
+    mismatch, read N and read end; both occ characters' read end, N and
+    death; neither branch)."""
+    t = ctx["t"]
+    total = np.zeros(len(EXITS), np.int64)
+    for case in CASES:
+        targs, want, (prev_cap, E, restart, walk) = plain_case(ctx, case)
+        for staged in (0, 1):
+            ex = torch.zeros(len(EXITS), dtype=torch.int64)
+            got = twin_fwd(t["dfm"], t["codes16"], *targs, prev_cap, E,
+                           restart, walk, staged=staged, exits=ex)
+            _eq(want["ecount"], got["ecount"], case)
+            total += ex.numpy()
+    # K2 lanes anchored 2-7 bases left of the reads' N runs, so that an
+    # occ step's first or second character is an N (amb0, amb1)
+    codes, lens = ctx["codes"], ctx["lens"]
+    rid, col = np.nonzero((codes >= 4) & (np.arange(L) < lens[:, None]))
+    first = np.r_[True, (np.diff(rid) != 0) | (np.diff(col) != 1)]
+    rid = np.repeat(rid[first], 6).astype(np.int32)
+    x0 = (np.repeat(col[first], 6) - np.tile(np.arange(2, 8),
+                                             int(first.sum()))).clip(0)
+    lanes = (torch.as_tensor(codes), torch.as_tensor(lens),
+             torch.as_tensor(rid), torch.as_tensor(x0.astype(np.int32)),
+             torch.ones(len(rid), dtype=torch.int32),
+             torch.ones(len(rid), dtype=torch.bool))
+    want = smem_sweep.fwd_sweep_plain(t["dfm"], *lanes, 20, 22,
+                                      t["codes16"], restart=False)
+    for staged in (0, 1):
+        ex = torch.zeros(len(EXITS), dtype=torch.int64)
+        got = twin_fwd(t["dfm"], t["codes16"], *lanes, 20, 22, False, True,
+                       staged=staged, exits=ex)
+        for f in FWD:
+            _eq(want[f], got[f], f"lanes at N runs, staged {staged}: {f}")
+        total += ex.numpy()
+    ex = torch.zeros(len(EXITS), dtype=torch.int64)
+    twin_fwd(t["dfm"], t["codes16"], *never_ending_lane(ctx), 20, 22, False,
+             False, exits=ex)
+    total += ex.numpy()
+    missing = [e for e, n in zip(EXITS, total) if n == 0]
+    assert not missing, (missing, dict(zip(EXITS, total.tolist())))
+
+
+def long_reads(g, rng, Lc):
+    """Four reads in code rows of length Lc: a copy of the genome's first
+    Lc bases whose length runs 40 past the row (the walk reads code 0
+    there), the next 900 bases with every 97th changed and an N run, and
+    two random 150-mers."""
+    codes = np.full((4, Lc), 4, np.int32)
+    lens = np.array([Lc + 40, 900, 150, 150], np.int32)
+    codes[0] = g[:Lc]
+    r = g[Lc:Lc + 900].astype(np.int32).copy()
+    r[::97] = (r[::97] + 1) % 4
+    r[400:420] = 4
+    codes[1, :900] = r
+    codes[2:, :150] = rng.integers(0, 4, (2, 150))
+    return codes, lens
+
+
+@pytest.mark.parametrize("shape", ["k1", "k2_walk"])
+def test_sweep_fwd_twin_past_the_staging_cut_off(ctx, shape):
+    """Code rows one position past the card's staging cut-off (the card
+    then reads them where they lie, `fgdp_sweep_fwd_staged_host`): the
+    twin as the card chooses and staged, the torch-op loop and
+    fgdp_tpu's fwd_sweep exactly equal, K1's and K2's shapes."""
+    lib = kernels.build_host_twin()
+    Lc = STAGED_MAX_L + 1
+    assert lib.fgdp_sweep_fwd_staged_host(STAGED_MAX_L) == 1
+    assert lib.fgdp_sweep_fwd_staged_host(Lc) == 0
+    g = gen_genome(120_000, seed=3)
+    codes, lens = long_reads(g, np.random.default_rng(5), Lc)
+    restart, walk, prev_cap, _, _ = CASES[shape]
+    if restart:
+        lanes = (np.arange(4, dtype=np.int32), np.zeros(4, np.int32),
+                 np.ones(4, np.int32), np.ones(4, bool))
+        E = 2 * Lc + 16
+    else:
+        rid = np.repeat(np.arange(4), 3).astype(np.int32)
+        x0 = np.array([0, 5000, 12_300, 0, 300, 850, 0, 60, 149, 0, 10, 100],
+                      np.int32)
+        lanes = (rid, x0, np.array([1, 2, 3] * 4, np.int32),
+                 np.ones(12, bool))
+        E = prev_cap + 2
+    t, j = ctx["t"], ctx["j"]
+    arrs = [both(a) for a in (codes, lens) + lanes]
+    targs = [a[1] for a in arrs]
+    want = smem_sweep.fwd_sweep_plain(t["dfm"], *targs, prev_cap, E,
+                                      t["codes16"], restart=restart,
+                                      walk=walk)
+    jfw = _jax_fwd(prev_cap, E, restart, walk)(
+        j["dfm"], *(a[0] for a in arrs), ref_codes16=j["codes16"])
+    for staged in (-1, 1):
+        got = twin_fwd(t["dfm"], t["codes16"], *targs, prev_cap, E, restart,
+                       walk, staged=staged)
+        for f in FWD:
+            _eq(want[f], got[f], f"{shape} staged {staged}: {f}")
+    for f in FWD:
+        _eq(jfw[f], want[f], f"{shape} torch ops vs fgdp_tpu: {f}")
+    assert int(want["ecount"].sum()) > 0
+
+
+def edge_rows(g):
+    """Code rows of L' = 150 (no multiple of 32) whose reads meet the
+    row's edges in a walk: row 0 copies 150 genome bases followed in the
+    genome by two A's, with length 190 (positions 150-189 read code 0, so
+    the walk matches on past the row), row 1 starts with a T; rows 2-9
+    hold 150 genome bases but lengths 100-149 (bases past the length
+    read bad)."""
+    Lr = 150
+    p = next(i for i in range(len(g) - Lr - 2)
+             if g[i + Lr] == 0 and g[i + Lr + 1] == 0 and g[i + Lr - 1])
+    codes = np.stack([g[p:p + Lr]] + [g[q:q + Lr] for q in
+                                      range(7000, 16000, 1000)])
+    codes = codes.astype(np.int32)
+    codes[1, 0] = 3
+    lens = np.array([Lr + 40, Lr] + [100 + 7 * i for i in range(8)],
+                    np.int32)
+    return codes, lens
+
+
+@pytest.mark.parametrize("shape", ["k1", "k2_walk"])
+def test_sweep_fwd_twin_reads_the_row_edges(ctx, shape):
+    """The walk's readings at a row's edges: a position at or past L but
+    below the length reads code 0, a base past the length reads bad. The
+    twin staged and in place, the torch-op loop and fgdp_tpu's fwd_sweep
+    exactly equal, K1's and K2's shapes."""
+    codes, lens = edge_rows(gen_genome(120_000, seed=3))
+    n = codes.shape[0]
+    restart, walk, prev_cap, _, _ = CASES[shape]
+    if restart:
+        lanes = (np.arange(n, dtype=np.int32), np.zeros(n, np.int32),
+                 np.ones(n, np.int32), np.ones(n, bool))
+        E = 2 * codes.shape[1] + 16
+    else:
+        rid = np.repeat(np.arange(n), 3).astype(np.int32)
+        x0 = np.tile(np.array([0, 40, 90], np.int32), n)
+        lanes = (rid, x0, np.ones(3 * n, np.int32), np.ones(3 * n, bool))
+        E = prev_cap + 2
+    t, j = ctx["t"], ctx["j"]
+    arrs = [both(a) for a in (codes, lens) + lanes]
+    targs = [a[1] for a in arrs]
+    want = smem_sweep.fwd_sweep_plain(t["dfm"], *targs, prev_cap, E,
+                                      t["codes16"], restart=restart,
+                                      walk=walk)
+    jfw = _jax_fwd(prev_cap, E, restart, walk)(
+        j["dfm"], *(a[0] for a in arrs), ref_codes16=j["codes16"])
+    for staged in (0, 1):
+        got = twin_fwd(t["dfm"], t["codes16"], *targs, prev_cap, E, restart,
+                       walk, staged=staged)
+        for f in FWD:
+            _eq(want[f], got[f], f"{shape} staged {staged}: {f}")
+    for f in FWD:
+        _eq(jfw[f], want[f], f"{shape} torch ops vs fgdp_tpu: {f}")
+    if restart:
+        # read 0's walk matched past its row: an entry ends beyond L'
+        assert int(want["en"][0].max()) >= codes.shape[1]
