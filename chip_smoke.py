@@ -156,6 +156,14 @@ fails loudly:
               exact_search and inexact_search (z = 1) on 4,096 patterns of
               read length, card vs CPU and against RMIndex.lookup_host
               (runs right after scale, whose index and reads it uses)
+ 16. bigindex the human-scale run's path (python -m
+              fgdp_tpu_torch.bigindex_run) at a cut depth, 4 x 8 Mb
+              contigs built by four worker processes: the plants on both
+              strands at their exact positions, a batch of 4,096 reads
+              (reads/s, share at the true position, escalations a shard,
+              D9, D10, K3, P1, P2 and D5 launches and ms), every shard's
+              primary D9 and D10 launches held exactly against their
+              torch-op loops
 Each phase starts the port's profiler (PROF) from zero. Then one JSON
 line of the kernels, the card line, and the result line.
 """
@@ -1948,13 +1956,14 @@ class SweepLaunches:
     inputs and outputs and the rung it ran in (the EscCounter's, None for
     a primary batch), to be held against the torch-op loops after the
     run, and the kernel ms of each from the events its C entry point
-    records around the launch."""
+    records around the launch. primary_only keeps the primary batches'
+    launches only."""
 
     FNS = {"sweep_fwd": ("fwd_sweep_kernel", "fwd_sweep_plain"),
            "sweep_bwd": ("bwd_entries_kernel", "bwd_entries_plain")}
 
-    def __init__(self, esc):
-        self.esc = esc
+    def __init__(self, esc, primary_only=False):
+        self.esc, self.primary_only = esc, primary_only
 
     def __enter__(self):
         from fgdp_tpu_torch.ops import kernels, smem_sweep
@@ -1965,7 +1974,8 @@ class SweepLaunches:
 
             def spy(*a, _name=name, _inner=inner, **kw):
                 out = _inner(*a, **kw)
-                self.seen.append((_name, self.esc.rung, a, kw, out))
+                if not (self.primary_only and self.esc.rung is not None):
+                    self.seen.append((_name, self.esc.rung, a, kw, out))
                 return out
 
             setattr(smem_sweep, kfn, spy)
@@ -3616,9 +3626,77 @@ def phase_sharded(dev, tmp, n_reads, n_pairs):
     return sh_launches
 
 
+class ShardRungs:
+    """The rung running in any shard of a ShardedAligner (EscCounter's
+    `rung` across its shards); attach(al) installs the counters."""
+
+    def __init__(self):
+        self.shards, self.escs = [], []
+
+    def attach(self, al):
+        self.shards = list(al.shards)
+        self.escs = [EscCounter(sh, SWEEP_KERNELS) for sh in al.shards]
+
+    @property
+    def rung(self):
+        return next((e.rung for e in self.escs if e.rung is not None),
+                    None)
+
+
+def phase_bigindex(dev):
+    """The human-scale run's path, `python -m fgdp_tpu_torch.bigindex_run`
+    (bigindex_run.run), at a cut depth: BIG_CONTIGS contigs of BIG_BP
+    (4 x 8 Mb, 64 M text positions) built by BIG_PROCS workers,
+    where the module's default is 10 x 128 Mb, whose builds alone take
+    minutes of SA-IS; only the depth is cut. Its checks: the 32 forward
+    plants of the last contig and the 32 reverse-complement plants of
+    the first at their exact contig, position and strand, and one batch
+    of 4,096 reads over every contig (reads/s, the share at the true
+    position, escalations a shard, D9, D10, K3, P1, P2 and D5 launches
+    and ms). Every shard's primary D9 and D10 launches (the plants' batch
+    and the timed one) are held exactly against their torch-op loops on
+    their inputs. At this depth no merged rb passes 2^31: that is held
+    on the CPU (tests/test_torch_bigindex.py) and by the full run."""
+    from collections import Counter
+
+    from fgdp_tpu_torch import bigindex_run
+    from fgdp_tpu_torch.ops import kernels
+
+    rungs = ShardRungs()
+    kernels.reset_launches()
+    with SweepLaunches(rungs, primary_only=True) as d910:
+        out = bigindex_run.run(BIG_CONTIGS, BIG_BP, BIG_PROCS, dev,
+                               small=True, batch=BIG_BATCH,
+                               on_aligner=rungs.attach, log=log)
+    path = ("sweep_fwd", "sweep_bwd", "seed_strategy", "sw_extend",
+            "chain_loop", "chain_flt")
+    launches = {k: kernels.LAUNCHES[k] for k in path}
+    log(f"[bigindex] launches on the path (plants and timed batch): "
+        f"{launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the bigindex "
+                             f"path: {launches}")
+    d910.hold("bigindex")
+    shard_of = {id(sh.dfm): i for i, sh in enumerate(rungs.shards)}
+    per = Counter((shard_of[id(a[0])], name)
+                  for name, _, a, _, _ in d910.seen)
+    log(f"[bigindex] primary D9/D10 launches held a shard: "
+        + ", ".join(f"c{i} D9 {per[i, 'sweep_fwd']} D10 "
+                    f"{per[i, 'sweep_bwd']}" for i in range(BIG_CONTIGS)))
+    if any(per[i, k] <= 0 for i in range(BIG_CONTIGS)
+           for k in ("sweep_fwd", "sweep_bwd")):
+        raise AssertionError("a shard's primary D9/D10 launches were not "
+                             "held")
+    if out["share"] < 0.95:
+        raise AssertionError(f"the bigindex batch placed {out['share']} "
+                             "of its reads")
+    return launches
+
+
 PHASES = ("probes", "kernels", "golden", "ladder", "scale", "engines",
           "mutect_golden", "mutect_scale", "sormadup_scale",
-          "pipeline_scale", "pe_scale", "mutect_options", "sharded")
+          "pipeline_scale", "pe_scale", "mutect_options", "sharded",
+          "bigindex")
 # the earlier paths' depth, set so that the whole run with the engines
 # phase stays well inside its time limit on a slow host: scale's 8,192 reads are two
 # batches (BASELINE config 1 aligns "~10K" reads; the engines phase reads
@@ -3637,6 +3715,12 @@ PIPELINE_DUPS = 819
 SORMADUP_RECORDS = 1_000_000
 SHARDED_READS = 1_024
 SHARDED_PAIRS = 1_024
+# the bigindex phase: the human-scale run's path at 4 x 8 Mb, four
+# workers, and its full batch of 4,096 reads
+BIG_CONTIGS = 4
+BIG_BP = 8_000_000
+BIG_PROCS = 4
+BIG_BATCH = 4_096
 
 
 def main(argv=None):
@@ -3719,6 +3803,9 @@ def main(argv=None):
         if "sharded" in phases:
             with phase_clock("sharded"):
                 phase_sharded(dev, tmp, SHARDED_READS, SHARDED_PAIRS)
+        if "bigindex" in phases:
+            with phase_clock("bigindex"):
+                phase_bigindex(dev)
     if phases != set(PHASES):
         log(f"[done] phases {sorted(phases)} passed in "
             f"{time.time() - t_start:.1f} s (partial run: no result)")

@@ -40,9 +40,12 @@ import dataclasses
 import numpy as np
 
 from ..utils import dna
-from .suffix_array import bwt_from_sa, suffix_array
+from .suffix_array import suffix_array
 
 OCC_BLOCK = 32  # BWT codes per occ checkpoint (two uint32 words per column)
+# suffix-array rows a pass of FMIndex.build takes at a time (a multiple
+# of OCC_BLOCK): it sets the size of the temporaries, not the result
+BUILD_CHUNK = 1 << 18
 
 
 @dataclasses.dataclass
@@ -66,73 +69,100 @@ class FMIndex:
     # ---- construction ----
 
     @classmethod
-    def build(cls, ref_codes: np.ndarray) -> "FMIndex":
+    def build(cls, ref_codes: np.ndarray,
+              chunk: int = BUILD_CHUNK) -> "FMIndex":
+        """The index of ref_codes (0..3). Past the native SA-IS, one pass
+        walks the suffix array `chunk` rows at a time, so the build holds
+        the text (1 B a text position), the int32 SA (4 B), the occ rows
+        (2.5 B) and the packed words (0.25 B), and no full-length
+        temporary but the int64 SA while it is narrowed."""
         assert ref_codes.max(initial=0) <= 3, "randomize ambiguous bases first"
+        if chunk <= 0 or chunk % OCC_BLOCK:
+            raise ValueError("chunk must be a positive multiple of OCC_BLOCK")
         n = len(ref_codes)
-        x = np.concatenate([ref_codes, dna.revcomp(ref_codes)]).astype(np.uint8)
-        sa2n = suffix_array(x)
-        bwt, sentinel_row, full_sa = bwt_from_sa(x, sa2n)
         big_n = 2 * n + 1
         assert big_n < 2**31, "int32 SA layout requires text < 2^31 (shard larger refs)"
+        x = np.empty(2 * n, np.uint8)              # X = T + revcomp(T)
+        x[:n] = ref_codes
+        x[n:] = x[:n][::-1]
+        np.subtract(3, x[n:], out=x[n:])
+        # row 0 is the sentinel suffix ($ sorts first); SA-IS's int64
+        # rows are narrowed as they land
+        sa = np.empty(big_n, np.int32)
+        sa[0] = 2 * n
+        sa[1:] = suffix_array(x)
 
-        # C array: sentinel (rank 0) + cumulative symbol counts of X
-        sym_counts = np.bincount(x, minlength=4)[:4]
+        # C array: sentinel (rank 0) + cumulative symbol counts of X;
+        # counts[c] = first SA row of suffixes starting with c; counts[4] = N
+        sym_counts = np.zeros(4, np.int64)
+        for a in range(0, 2 * n, chunk):
+            sym_counts += np.bincount(x[a:a + chunk], minlength=4)[:4]
         counts = np.zeros(5, dtype=np.int64)
         counts[0] = 1
         counts[1:] = 1 + np.cumsum(sym_counts)
-        # counts[c] = first SA row of suffixes starting with c; counts[4] = N
 
-        # second-to-last BWT column B1: char two before each suffix.
-        # p2 == big_n-1 is the $ position (exactly the SA==1 row).
-        p2 = (full_sa + big_n - 2) % big_n
-        r1_row = int(np.nonzero(full_sa == 1)[0][0])
-        bwt1 = np.zeros(big_n, dtype=np.uint8)
-        real1 = p2 < big_n - 1
-        bwt1[real1] = x[p2[real1]]
-        cc_r0 = int(bwt1[sentinel_row]) * 4 + 0   # B packs $ as 0 at r0
-        cc_r1 = 0 * 4 + int(bwt[r1_row])          # B1 packs $ as 0 at r1
+        # one pass over the rows: the last BWT column B (the char before
+        # each suffix; a 0 placeholder at the sentinel row r0, SA == 0),
+        # the second-to-last B1 (two before; $ packs as 0 at r1, SA ==
+        # 1), their occ checkpoints and packed words, and the counts of
+        # the first-two-chars keys ($ sorts first: key offset +1). The
+        # placeholder code 0 at r0/r1 is counted in occ and corrected at
+        # query time via sentinel_row / cc_r0 / cc_r1.
+        nblocks = -(-big_n // OCC_BLOCK) + 1
+        occ = np.zeros((nblocks, 4), dtype=np.int32)
+        occ2 = np.zeros((nblocks, 16), dtype=np.int32)
+        words = np.zeros((2, nblocks * 2), dtype=np.uint32)
+        run, run2 = np.zeros(4, np.int64), np.zeros(16, np.int64)
+        key_counts = np.zeros(25, np.int64)
+        last = 2 * n - 1
+        for a in range(0, big_n, chunk):
+            s = sa[a:a + chunk]
+            m = len(s)
+            at0, at1 = np.flatnonzero(s == 0), np.flatnonzero(s == 1)
+            bw = x[s - 1]
+            bw[at0] = 0
+            p2 = s - 2
+            p2[at0] = last                         # r0: B1 is X[2n - 1]
+            bw1 = x[p2]
+            bw1[at1] = 0
+            if len(at0):
+                sentinel_row, r0_b1 = a + int(at0[0]), int(bw1[at0[0]])
+            if len(at1):
+                r1_row, r1_b = a + int(at1[0]), int(bw[at1[0]])
+            f0 = x[np.minimum(s, last)].astype(np.int32) + 1
+            f0[s == 2 * n] = 0
+            f1 = x[np.minimum(s + 1, last)].astype(np.int32) + 1
+            f1[s >= last] = 0
+            key_counts += np.bincount(f0 * 5 + f1, minlength=25)
+            nb = -(-m // OCC_BLOCK)
+            blk = np.arange(m, dtype=np.int32) // OCC_BLOCK
+            b0 = a // OCC_BLOCK + 1
+            occ[b0:b0 + nb] = np.bincount(
+                blk * 4 + bw, minlength=nb * 4).reshape(nb, 4).cumsum(
+                    axis=0) + run
+            occ2[b0:b0 + nb] = np.bincount(
+                blk * 16 + bw1.astype(np.int32) * 4 + bw,
+                minlength=nb * 16).reshape(nb, 16).cumsum(axis=0) + run2
+            run, run2 = occ[b0 + nb - 1], occ2[b0 + nb - 1]
+            w0, nw = a // 16, -(-m // 16)
+            words[0, w0:w0 + nw] = dna.pack_2bit_words(bw, 16)
+            words[1, w0:w0 + nw] = dna.pack_2bit_words(bw1, 16)
 
-        # c2 cumulative: first row of each dinucleotide prefix, from the
-        # (sorted) first-two-chars keys; $ sorts first (key offset +1)
-        xi = x.astype(np.int64)
-        f0 = np.where(full_sa == big_n - 1, -1, xi[np.minimum(full_sa, 2 * n - 1)])
-        nxt = full_sa + 1
-        f1 = np.where(nxt >= big_n - 1, -1, xi[np.minimum(nxt, 2 * n - 1)])
-        key = (f0 + 1) * 5 + (f1 + 1)
+        # c2 cumulative: the first row of each dinucleotide prefix is the
+        # number of rows whose (sorted) key is smaller
         cc_keys = (np.arange(16) // 4 + 1) * 5 + (np.arange(16) % 4 + 1)
         c2 = np.zeros(17, dtype=np.int64)
-        c2[:16] = np.searchsorted(key, cc_keys, side="left")
+        c2[:16] = np.concatenate([[0], np.cumsum(key_counts)])[cc_keys]
         c2[16] = big_n
-
-        # occ checkpoints (placeholder code 0 at r0/r1 is counted here and
-        # corrected at query time via sentinel_row / cc_r0 / cc_r1)
-        nblocks = -(-big_n // OCC_BLOCK) + 1
-        pad_n = nblocks * OCC_BLOCK
-        onehot = np.zeros((pad_n, 4), dtype=np.int32)
-        onehot[np.arange(big_n), bwt] = 1
-        csum = onehot.reshape(nblocks, OCC_BLOCK, 4).sum(axis=1).cumsum(axis=0)
-        occ = np.zeros((nblocks, 4), dtype=np.int32)
-        occ[1:] = csum[:-1]
-
-        pc = (bwt1.astype(np.int32) * 4 + bwt).astype(np.int32)
-        onehot2 = np.zeros((pad_n, 16), dtype=np.int32)
-        onehot2[np.arange(big_n), pc] = 1
-        csum2 = onehot2.reshape(nblocks, OCC_BLOCK, 16).sum(axis=1).cumsum(axis=0)
-        occ2 = np.zeros((nblocks, 16), dtype=np.int32)
-        occ2[1:] = csum2[:-1]
-
-        def pack2(codes):
-            words = dna.pack_2bit_words(codes, 16)
-            out = np.zeros(nblocks * 2, dtype=np.uint32)
-            out[: len(words)] = words
-            return out.reshape(nblocks, 2)
 
         return cls(
             n_ref=n, text_len=big_n, sentinel_row=sentinel_row,
             r1_row=r1_row, counts=counts, c2=c2, occ=occ, occ2=occ2,
-            bwt_words=pack2(bwt), bwt1_words=pack2(bwt1),
-            cc_r0=cc_r0, cc_r1=cc_r1,
-            sa=full_sa.astype(np.int32),
+            bwt_words=words[0].reshape(nblocks, 2),
+            bwt1_words=words[1].reshape(nblocks, 2),
+            cc_r0=r0_b1 * 4 + 0,                   # B packs $ as 0 at r0
+            cc_r1=0 * 4 + r1_b,                    # B1 packs $ as 0 at r1
+            sa=sa,
         )
 
     # ---- host-side rank / search (oracle + build verification) ----

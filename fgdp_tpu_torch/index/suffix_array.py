@@ -31,22 +31,3 @@ def suffix_array(codes: np.ndarray) -> np.ndarray:
         raise ValueError("suffix_array takes codes in [0, 255)")
     return native.suffix_array_u8(codes.astype(np.uint8))
 
-
-def bwt_from_sa(codes: np.ndarray, sa: np.ndarray):
-    """BWT of codes + sentinel.
-
-    The BWT is over the n+1 rotations of (codes, $). Row 0 is the sentinel
-    suffix. Returns (bwt_codes uint8[n+1], sentinel_row): bwt_codes holds a
-    0 placeholder at sentinel_row (the row whose rotation ends with $,
-    i.e. SA == 0); occ lookups correct for it via sentinel_row.
-    """
-    n = len(codes)
-    full_sa = np.empty(n + 1, dtype=np.int64)
-    full_sa[0] = n
-    full_sa[1:] = sa
-    prev = full_sa - 1  # char preceding each suffix
-    bwt = np.zeros(n + 1, dtype=np.uint8)
-    valid = prev >= 0
-    bwt[valid] = codes[prev[valid]]
-    sentinel_row = int(np.nonzero(~valid)[0][0])
-    return bwt, sentinel_row, full_sa

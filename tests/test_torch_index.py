@@ -109,3 +109,59 @@ def test_fastq_readers_equal(fq):
         for f in ("codes", "quals", "lengths"):
             np.testing.assert_array_equal(getattr(g, f), getattr(w, f),
                                           err_msg=f)
+
+
+def _build_case(case):
+    """(codes, chunk) of a lean-build case: text lengths 2n + 1 at the
+    occ blocks' edges (2n + 1 is odd: 2n + 1 = 32k + 1 is the length whose
+    2n text codes fill whole blocks, 32k + 31 the one a code short of
+    them), one and two bases, N runs randomized by from_contigs, and
+    small chunks so that a pass spans many of them."""
+    rng = np.random.default_rng(31)
+    n, chunk = {"n15": (15, None), "n16": (16, None), "n31": (31, None),
+                "n32": (32, None), "n1024": (1024, None),
+                "one_base": (1, None), "two_bases": (2, None),
+                "chunks32": (3_000, 32), "chunks96": (3_001, 96),
+                "n_runs": (5_000, 64)}[case]
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    if case == "n_runs":
+        codes[100:130] = 4
+        codes[4_000:4_300] = 4
+        codes[-7:] = 4
+        codes = PackedReference.from_contigs(["c"], [codes]).codes
+    return codes, chunk
+
+
+@pytest.mark.parametrize("case", ["n15", "n16", "n31", "n32", "n1024",
+                                  "one_base", "two_bases", "chunks32",
+                                  "chunks96", "n_runs"])
+def test_lean_fm_build_equals_jax(case):
+    codes, chunk = _build_case(case)
+    kw = {} if chunk is None else dict(chunk=chunk)
+    got, want = FMIndex.build(codes, **kw), JFMIndex.build(codes)
+    _eq_fields(got, want, FM_FIELDS)
+    for f in FM_FIELDS:
+        x, y = getattr(got, f), getattr(want, f)
+        assert type(x) is type(y), f
+        if isinstance(x, np.ndarray):
+            assert x.dtype == y.dtype and x.shape == y.shape, f
+    if chunk is not None:
+        assert got.text_len > 4 * chunk            # several chunks
+
+
+def test_lean_fm_build_traced_peak():
+    """The numpy peak of FMIndex.build (tracemalloc; the native SA-IS's
+    own working memory is not traced) stays at most 32 B a text position
+    on a 1 Mb genome."""
+    import tracemalloc
+    from fgdp_tpu_torch.io import native
+    native.get_lib()
+    codes = np.random.default_rng(5).integers(0, 4, 1_000_000) \
+        .astype(np.uint8)
+    tracemalloc.start()
+    try:
+        fm = FMIndex.build(codes)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak <= 32 * fm.text_len, peak / fm.text_len
