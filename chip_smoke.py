@@ -1796,7 +1796,7 @@ def phase_scale(dev, tmp, genome_bp, n_reads, batch):
              for k, v in aligner.stage_ms.items()}
     log(f"[scale] index build {t_index:.2f} s")
     log(f"[scale] mem: {n} reads in {wall:.2f} s = {n / wall:.1f} reads/s "
-        f"end to end (batch {batch}, stages synchronised for timing)")
+        f"end to end (batch {batch}, stages timed by CUDA events)")
     log(f"[scale] per batch ms: {json.dumps(stage)}; host finalize "
         f"{fin_ms:.1f}; escalated stage ms total "
         f"{json.dumps({k: round(v, 1) for k, v in aligner.esc_stage_ms.items()})}")

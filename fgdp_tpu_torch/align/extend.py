@@ -23,6 +23,7 @@ from ..index.reference import DeviceReference
 from ..ops import sw as swops
 from ..ops.smem import any_by
 from ..ops.smem_sweep import pack_reads, read_window
+from ..utils.profiling import host_read
 from .chain import ChainBatch
 
 _I32 = torch.int32
@@ -232,8 +233,8 @@ def extend_chains(cb: ChainBatch, codes, lens, dref: DeviceReference,
     payload = torch.stack([g_qb, g_rb, g_qe, g_re, g_score, g_truesc,
                            g_w, grid, glen, gchain,
                            glive.to(_I32)], dim=1).to(_I32)
-    fills = torch.tensor([0, 0, 0, 0, -1, -1, opt.w, -1, 0, -1, 0],
-                         dtype=_I32, device=dev)
+    fills = host_read(torch.tensor, [0, 0, 0, 0, -1, -1, opt.w, -1, 0, -1,
+                                     0], dtype=_I32, device=dev)
     out = fills.expand(B * E + 1, 11).clone()
     out[greg] = payload
     out = out[:B * E].reshape(B, E, 11)

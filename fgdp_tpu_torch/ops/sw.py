@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import host_read
 from . import kernels
 
 NEG_INF = -(1 << 30)
@@ -88,7 +89,7 @@ def sw_extend_kernel(query, qlen, target, tlen, h0, w: int, p: SWParams,
     if qlen.dim() != 1 or tlen.dim() != 1 or h0.dim() != 1:
         raise ValueError("sw_extend kernel: qlen/tlen/h0 must be 1-D")
     # the kernel reads query row j up to qlen and keeps QP + 2 band cells
-    if J and int(qlen.max()) > QP:
+    if J and host_read(int, qlen.max()) > QP:
         raise ValueError(f"sw_extend kernel: qlen above the query width "
                          f"{QP}")
     for name, a in (("cells", cells), ("rows", rows)):

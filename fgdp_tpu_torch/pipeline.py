@@ -38,36 +38,59 @@ from .ops.fm import DeviceFMIndex
 from .ops.smem import compact_order
 from .utils import dna
 from .utils.device import resolve_device
+from .utils.profiling import PROF, WORKER_SAM, host_read
 
 _I32 = torch.int32
 STAGES = ("seed", "chain", "extend", "pack")
 
 
 class _StageClock:
-    """Per-stage wall ms into a dict, each stage ended by a device sync
-    (off when the dict is None: the stages then run unsynchronised)."""
+    """Per-stage ms of one device program run into a dict (off when the
+    dict is None). On the card each stage boundary records a CUDA event
+    on the current stream and nothing waits: `fold` adds each stage's
+    span on the device's timeline once a fetch on that stream has
+    waited for the events. On the CPU a stage is host wall time, added
+    at its end."""
 
     def __init__(self, acc, device):
         self.acc = acc
-        self.device = device
+        self.marks = []                 # (stage ended, its CUDA event)
+        self.cuda = acc is not None and device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.current_stream(device)
+            self.marks.append((None, self._event()))
         self.t = time.perf_counter()
+
+    def _event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(self.stream)
+        return e
 
     def lap(self, name):
         if self.acc is None:
             return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self.cuda:
+            self.marks.append((name, self._event()))
+            return
         now = time.perf_counter()
         self.acc[name] = self.acc.get(name, 0.0) + 1e3 * (now - self.t)
         self.t = now
 
+    def fold(self):
+        """Add the recorded stages to the dict; call only after a fetch
+        on the stream that followed the run (its events are then done)."""
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            self.acc[name] = self.acc.get(name, 0.0) + a.elapsed_time(b)
+        self.marks = []
+
 
 def device_align(dfm: DeviceFMIndex, dref: DeviceReference, codes, lens,
                  active, opt: AlignConfig, shapes: BatchShapes,
-                 lcp_tree=None, lcp_isa=None, stage_ms=None):
+                 lcp_tree=None, lcp_isa=None, clock=None):
     """codes int[B, L] -> AlnRegBatch (compacted to transfer_regs).
-    Seeding runs the LCP engine given a tree, else the sweep."""
-    clock = _StageClock(stage_ms, codes.device)
+    Seeding runs the LCP engine given a tree, else the sweep. `clock`, a
+    _StageClock, times the stages seed, chain and extend."""
+    clock = clock or _StageClock(None, codes.device)
     codes = codes.to(_I32)
     seeds = collect_seeds(dfm, dref, codes, lens, active, opt,
                           max_seeds=shapes.max_smems, lcp_tree=lcp_tree,
@@ -179,8 +202,8 @@ def pack_regs(regs, cap_per_read: int = 4):
     hdr = torch.stack(
         [kept | (ovf.to(_I32) << 16) | (regs.ovf_seed.to(_I32) << 17),
          regs.frac_rep.to(torch.float32).contiguous().view(_I32)], dim=1)
-    return torch.cat([torch.tensor([E, B], dtype=_I32, device=dev),
-                      hdr.reshape(-1), payload.reshape(-1)])
+    head = host_read(torch.tensor, [E, B], dtype=_I32, device=dev)
+    return torch.cat([head, hdr.reshape(-1), payload.reshape(-1)])
 
 
 def unpack_regs(buf: np.ndarray) -> dict:
@@ -216,15 +239,16 @@ def unpack_regs(buf: np.ndarray) -> dict:
 
 
 def device_align_packed(dfm, dref, codes, lens, active, opt, shapes,
-                        lcp_tree=None, lcp_isa=None, stage_ms=None):
-    """device_align + single-buffer wire packing (see pack_regs).
+                        lcp_tree=None, lcp_isa=None, clock=None):
+    """device_align + single-buffer wire packing (see pack_regs); one
+    `clock` times the four stages.
 
     Escalated programs (pack_cap=0) ship at full per-read width."""
     cap = shapes.pack_cap or shapes.transfer_regs
+    clock = clock or _StageClock(None, codes.device)
     regs = device_align(dfm, dref, codes, lens, active, opt=opt,
                         shapes=shapes, lcp_tree=lcp_tree, lcp_isa=lcp_isa,
-                        stage_ms=stage_ms)
-    clock = _StageClock(stage_ms, codes.device)
+                        clock=clock)
     buf = pack_regs(regs, cap_per_read=cap)
     clock.lap("pack")
     return buf
@@ -235,8 +259,10 @@ class Aligner:
 
     device=None runs on the CUDA card and raises without one; pass
     device="cpu" to run on the CPU. `stage_ms` / `esc_stage_ms`, when
-    set to dicts, accumulate per-stage wall ms of the primary and the
-    escalated device runs (each stage then ends with a device sync)."""
+    set to dicts, accumulate per-stage ms of the primary and the
+    escalated device runs (_StageClock: on the card each stage's span on
+    the device's timeline, added at the fetch that follows it; nothing
+    waits for the card on its account)."""
 
     ESCALATE_LEVELS = 2
 
@@ -267,6 +293,7 @@ class Aligner:
         self._dev_opt = dataclasses.replace(self.opt, output_all=False)
         self.stage_ms = None
         self.esc_stage_ms = None
+        self._clocks = []       # stage clocks whose events are not folded
         self.esc_reads = 0
         self.esc_calls = 0
 
@@ -301,17 +328,29 @@ class Aligner:
 
     def _run(self, shapes, codes, lens, active, stage_ms):
         """One device program run -> packed reg buffer on the device."""
-        t = lambda a: torch.as_tensor(a, device=self.device)
-        return device_align_packed(
+        t = lambda a: host_read(torch.as_tensor, a, device=self.device)
+        clock = _StageClock(stage_ms, self.device)
+        buf = device_align_packed(
             self.dfm, self.dref, t(codes), t(lens), t(active),
             opt=self._dev_opt, shapes=shapes, lcp_tree=self.lcp_tree,
-            lcp_isa=self.lcp_isa, stage_ms=stage_ms)
+            lcp_isa=self.lcp_isa, clock=clock)
+        if clock.marks:
+            self._clocks.append(clock)
+        return buf
+
+    def _fetch(self, buf) -> np.ndarray:
+        """A packed reg buffer on the host. The copy waits for all work
+        queued on the stream, so the stage clocks of every run
+        dispatched so far are done and fold here."""
+        out = buf.cpu().numpy()
+        for clock in self._clocks:
+            clock.fold()
+        self._clocks = []
+        return out
 
     def _device_regs_async(self, seq_codes):
         """Dispatch the primary device program for one batch; returns
         the packed reg buffer on the device."""
-        from .utils.profiling import PROF
-
         B = len(seq_codes)
         L = self.shapes.read_len
         codes = np.full((B, L), 4, np.int8)
@@ -325,7 +364,7 @@ class Aligner:
                              self.stage_ms)
 
     def _regs_to_np(self, regs, seq_codes=None):
-        out = unpack_regs(regs.cpu().numpy())
+        out = unpack_regs(self._fetch(regs))
         if seq_codes is not None:
             out = self._retry_overflow(out, seq_codes)
         return out
@@ -369,14 +408,16 @@ class Aligner:
             ext_jobs_per_read=6 * f)
 
     def _esc_exec(self, flavor, level, B_esc, codes, lens, active):
-        """Run one escalated chunk on the aligner's device; returns
-        {field: np.ndarray}."""
+        """Run one escalated chunk on the aligner's device; returns its
+        packed reg buffer on the host."""
         mk = {"full": self._escalated_shapes,
               "k2w": self._k2_wide_shapes,
               "cw": self._chain_wide_shapes}[flavor]
         esh = dataclasses.replace(mk(level), batch_reads=B_esc)
-        return unpack_regs(self._run(esh, codes, lens, active,
-                                     self.esc_stage_ms).cpu().numpy())
+        with PROF.phase("ESC_DISPATCH"):
+            buf = self._run(esh, codes, lens, active, self.esc_stage_ms)
+        with PROF.phase("ESC_FETCH"):
+            return self._fetch(buf)
 
     def _retry_overflow(self, regs_np, seq_codes):
         """Re-run overflowed reads through progressively wider device
@@ -386,12 +427,12 @@ class Aligner:
         ovf = regs_np.get("overflow")
         if ovf is None or not np.any(ovf):
             return regs_np
-        from .utils.profiling import PROF
         with PROF.phase("ESC_RETRY"):
             return self._retry_overflow_inner(regs_np, seq_codes)
 
     def _retry_overflow_inner(self, regs_np, seq_codes):
-        regs_np = {k: np.array(v) for k, v in regs_np.items()}
+        with PROF.phase("ESC_PACK"):
+            regs_np = {k: np.array(v) for k, v in regs_np.items()}
         ovf = regs_np["overflow"]
         idx = np.flatnonzero(np.asarray(ovf))
         # cause routing: seeding-stage overflow needs the wider seeding
@@ -400,7 +441,6 @@ class Aligner:
         seed_flag = np.asarray(regs_np.get(
             "ovf_seed", np.zeros(len(ovf), bool))).copy()
         self.esc_reads += len(idx)
-        B = len(ovf)
         L = self.shapes.read_len
 
         for level in range(1, self.ESCALATE_LEVELS + 1):
@@ -420,42 +460,55 @@ class Aligner:
                 for c0 in range(0, len(sub_idx), B_esc):
                     self.esc_calls += 1
                     chunk = sub_idx[c0:c0 + B_esc]
-                    codes = np.full((B_esc, L), 4, np.int32)
-                    lens = np.zeros(B_esc, np.int32)
-                    active = np.zeros(B_esc, bool)
-                    for j, b in enumerate(chunk):
-                        s = seq_codes[b]
-                        n = min(len(s), L)
-                        codes[j, :n] = np.asarray(s[:n], np.int32)
-                        lens[j] = n
-                        active[j] = True
-                    sub_np = self._esc_exec(flavor, level, B_esc,
-                                            codes, lens, active)
-                    E_new = sub_np["valid"].shape[1]
-                    E_cur = regs_np["valid"].shape[1]
-                    if E_new > E_cur:
-                        for k, v in regs_np.items():
-                            if v.ndim == 2:
-                                pad = np.zeros((B, E_new - E_cur),
-                                               v.dtype)
-                                regs_np[k] = np.concatenate([v, pad],
-                                                            axis=1)
-                    for j, b in enumerate(chunk):
-                        for k, v in regs_np.items():
-                            if v.ndim == 2:
-                                v[b] = sub_np[k][j]
-                        regs_np["overflow"][b] = sub_np["overflow"][j]
-                        # a cw re-run that NOW flags seeding overflow
-                        # promotes to the full flavor next level
-                        seed_flag[b] = bool(
-                            sub_np.get("ovf_seed",
-                                       np.zeros(B_esc, bool))[j])
-                        if sub_np["overflow"][j]:
-                            still.append(b)
+                    PROF.count("ESC_ACTIVE", len(chunk))
+                    PROF.count("ESC_LANES", B_esc)
+                    with PROF.phase("ESC_PACK"):
+                        codes = np.full((B_esc, L), 4, np.int32)
+                        lens = np.zeros(B_esc, np.int32)
+                        active = np.zeros(B_esc, bool)
+                        for j, b in enumerate(chunk):
+                            s = seq_codes[b]
+                            n = min(len(s), L)
+                            codes[j, :n] = np.asarray(s[:n], np.int32)
+                            lens[j] = n
+                            active[j] = True
+                    buf = self._esc_exec(flavor, level, B_esc, codes, lens,
+                                         active)
+                    with PROF.phase("ESC_MERGE"):
+                        still += self._esc_merge(regs_np, seed_flag,
+                                                 chunk, unpack_regs(buf))
             idx = np.asarray(sorted(still), dtype=np.int64)
             if len(idx) == 0:
                 break
+        PROF.count("ESC_UNRESOLVED", int(np.count_nonzero(
+            regs_np["overflow"])))
         return regs_np
+
+    @staticmethod
+    def _esc_merge(regs_np, seed_flag, chunk, sub_np):
+        """Copy a rung's rows and flags over its reads' (widening the
+        batch's reg slots to the rung's first); returns the reads that
+        overflowed again."""
+        B = len(regs_np["overflow"])
+        E_new = sub_np["valid"].shape[1]
+        E_cur = regs_np["valid"].shape[1]
+        if E_new > E_cur:
+            for k, v in regs_np.items():
+                if v.ndim == 2:
+                    pad = np.zeros((B, E_new - E_cur), v.dtype)
+                    regs_np[k] = np.concatenate([v, pad], axis=1)
+        still = []
+        for j, b in enumerate(chunk):
+            for k, v in regs_np.items():
+                if v.ndim == 2:
+                    v[b] = sub_np[k][j]
+            regs_np["overflow"][b] = sub_np["overflow"][j]
+            # a cw re-run that NOW flags seeding overflow promotes to
+            # the full flavor next level
+            seed_flag[b] = bool(sub_np["ovf_seed"][j])
+            if sub_np["overflow"][j]:
+                still.append(b)
+        return still
 
     def _device_regs(self, seq_codes):
         regs = self._device_regs_async(seq_codes)
@@ -465,8 +518,6 @@ class Aligner:
                        paired=False):
         """Host finalize of one batch's device regs -> SAM lines (a
         paired batch's mate rescue on the aligner's device)."""
-        from .utils.profiling import PROF, WORKER_SAM
-
         with PROF.phase(WORKER_SAM):
             if paired:
                 return finalize_pe_batch(self.pref, self.opt, names,

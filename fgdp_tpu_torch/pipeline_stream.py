@@ -437,14 +437,19 @@ def _finalize_worker_init(pref_path, opt, device, timed=False):
 
 
 def _finalize_worker_run(args):
-    """(SAM lines, this batch's kswv work or None for single-end)."""
+    """(SAM lines, this batch's work): the seconds of this call, `s`, and
+    for a paired-end batch its kswv work."""
+    import time
+
     from . import pipeline as pipemod
     from .ops import kernels, kswv
 
+    t0 = time.perf_counter()
     names, seqs, quals, regs_np, id0, paired = args
     if not paired:
-        return pipemod.finalize_se_batch(_W_PREF, _W_OPT, None, names,
-                                         seqs, quals, regs_np, id0), None
+        lines = pipemod.finalize_se_batch(_W_PREF, _W_OPT, None, names,
+                                          seqs, quals, regs_np, id0)
+        return lines, dict(s=time.perf_counter() - t0)
     l0, w0 = kernels.LAUNCHES["kswv"], dict(kswv.WORK)
     lines = pipemod.finalize_pe_batch(_W_PREF, _W_OPT, names, seqs, quals,
                                       regs_np, id0, _W_DEVICE)
@@ -454,6 +459,7 @@ def _finalize_worker_run(args):
                 cells=kswv.WORK["cells"] - w0["cells"],
                 ms=sum(s.elapsed_time(e) for s, e in timed))
     timed.clear()
+    work["s"] = time.perf_counter() - t0
     return lines, work
 
 
@@ -494,12 +500,12 @@ class FinalizePool:
 
     @staticmethod
     def collect(fut):
-        """The SAM lines of a submitted batch; its kswv work is added to
-        POOL_KSWV."""
+        """The SAM lines of a submitted batch; the worker's seconds on it
+        are added to PROF's POOL_WORK, its kswv work to POOL_KSWV."""
         lines, work = fut.result()
-        if work is not None:
-            for k, v in work.items():
-                POOL_KSWV[k] += v
+        PROF.add("POOL_WORK", work.pop("s"))
+        for k, v in work.items():
+            POOL_KSWV[k] += v
         return lines
 
     def shutdown(self):
@@ -517,14 +523,20 @@ def stream_mem_pooled(aligner, batch_iter, write_line, pool: FinalizePool,
     try:
         for nm, sq, ql, regs_np, i0 in overlapped_regs(
                 aligner, Prefetcher(batch_iter, depth), depth):
-            pending.append(pool.submit(nm, sq, ql, regs_np, i0, paired))
+            with PROF.phase("POOL_SUBMIT"):
+                pending.append(pool.submit(nm, sq, ql, regs_np, i0,
+                                           paired))
             n = i0 + len(nm)
             while len(pending) > depth:
-                writer.put(pool.collect(pending.popleft()))
+                with PROF.phase("POOL_WAIT"):
+                    lines = pool.collect(pending.popleft())
+                writer.put(lines)
             if progress is not None:
                 progress(n)
         while pending:
-            writer.put(pool.collect(pending.popleft()))
+            with PROF.phase("POOL_WAIT"):
+                lines = pool.collect(pending.popleft())
+            writer.put(lines)
     finally:
         writer.close()
     return n
