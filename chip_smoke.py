@@ -1170,6 +1170,27 @@ def _load_fastq(path):
     return names, seqs, quals
 
 
+class EagerPrograms:
+    """While any spy below is entered, every Aligner runs its device
+    program op by op (pipeline._GraphRunner's private switch): the spies
+    watch each kernel call of the main path, and a replayed CUDA graph
+    makes none."""
+
+    depth = 0
+
+    @classmethod
+    def enter(cls):
+        from fgdp_tpu_torch.pipeline import _GraphRunner
+        cls.depth += 1
+        _GraphRunner._force_eager = True
+
+    @classmethod
+    def exit(cls):
+        from fgdp_tpu_torch.pipeline import _GraphRunner
+        cls.depth -= 1
+        _GraphRunner._force_eager = cls.depth > 0
+
+
 class EscCounter:
     """Counts kernel launches made inside escalated rungs; `rung` is the
     (flavor, level) of the rung running, None outside one."""
@@ -1204,6 +1225,7 @@ class ChainLaunches:
     after the run)."""
 
     def __enter__(self):
+        EagerPrograms.enter()
         from fgdp_tpu_torch.align import chain
         from fgdp_tpu_torch.ops import kernels
         self.chain, self.kernels = chain, kernels
@@ -1222,6 +1244,7 @@ class ChainLaunches:
         return self
 
     def __exit__(self, *exc):
+        EagerPrograms.exit()
         self.chain.chain_loop_kernel = self.inner
         self.launch_ms = [s.elapsed_time(e) for s, e in
                           self.kernels.TIMED.pop("chain_loop", [])]
@@ -1261,6 +1284,7 @@ class FltLaunches:
         self.esc, self.keep = esc, keep
 
     def __enter__(self):
+        EagerPrograms.enter()
         from fgdp_tpu_torch.align import chain
         from fgdp_tpu_torch.ops import kernels
         self.chain, self.kernels = chain, kernels
@@ -1282,6 +1306,7 @@ class FltLaunches:
         return self
 
     def __exit__(self, *exc):
+        EagerPrograms.exit()
         self.chain.chain_flt_kernel = self.inner
         self.launch_ms = [s.elapsed_time(e) for s, e in
                           self.kernels.TIMED.pop("chain_flt", [])]
@@ -1326,6 +1351,7 @@ class FirstChainCall:
     primary batch's: rungs follow their batch)."""
 
     def __enter__(self):
+        EagerPrograms.enter()
         from fgdp_tpu_torch.align import chain
         self.chain = chain
         self.inner = inner = chain.chain_seeds
@@ -1340,6 +1366,7 @@ class FirstChainCall:
         return self
 
     def __exit__(self, *exc):
+        EagerPrograms.exit()
         self.chain.chain_seeds = self.inner
 
 
@@ -1431,6 +1458,7 @@ class SeedLaunches:
         self.esc, self.keep = esc, keep
 
     def __enter__(self):
+        EagerPrograms.enter()
         import importlib
         from fgdp_tpu_torch.ops import kernels
         self.kernels = kernels
@@ -1454,6 +1482,7 @@ class SeedLaunches:
         return self
 
     def __exit__(self, *exc):
+        EagerPrograms.exit()
         import torch
         for name, (m, inner) in self.inner.items():
             setattr(m, SEED_FNS[name][1], inner)
@@ -1966,6 +1995,7 @@ class SweepLaunches:
         self.esc, self.primary_only = esc, primary_only
 
     def __enter__(self):
+        EagerPrograms.enter()
         from fgdp_tpu_torch.ops import kernels, smem_sweep
         self.kernels, self.mod = kernels, smem_sweep
         self.seen, self.inner = [], {}
@@ -1983,6 +2013,7 @@ class SweepLaunches:
         return self
 
     def __exit__(self, *exc):
+        EagerPrograms.exit()
         import torch
         for name, (kfn, _) in self.FNS.items():
             setattr(self.mod, kfn, self.inner[name])

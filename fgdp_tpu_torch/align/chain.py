@@ -189,29 +189,21 @@ def chain_loop_kernel(qbeg, rbeg, slen, rid, valid, overflow, l_pac: int,
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
     chain_of = torch.empty((B, P), dtype=_I32, device=dev)
     lib = kernels.load("chain_loop")
-    timed = kernels.TIMED.get("chain_loop")
     path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        ev = [None, None]
-        if timed is not None:
-            # the C side records the pair around the launch; a first
-            # record here makes torch create the events
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            for e in ev:
-                e.record(stream)
-            timed.append(ev)
+        ev = kernels.event_pair("chain_loop", stream)
         rc = lib.fgdp_chain_loop(
             ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(),
             ins[3].data_ptr(), vb.data_ptr(), ob.data_ptr(), B, P, C,
             int(l_pac), int(w), int(max_chain_gap), tbl.data_ptr(),
             n.data_ptr(), ovf.data_ptr(), chain_of.data_ptr(),
             ctypes.addressof(path),
-            *(e.cuda_event if e is not None else None for e in ev),
+            *kernels.event_ptrs(ev),
             stream.cuda_stream)
     kernels.check(rc, "chain_loop")
-    kernels.LAUNCHES["chain_loop"] += 1
-    PATH_LAUNCHES[KERNEL_PATHS[path.value]] += 1
+    kernels.tally(kernels.LAUNCHES, "chain_loop")
+    kernels.tally(PATH_LAUNCHES, KERNEL_PATHS[path.value])
     out = dict(zip(LOOP_FIELDS, tbl.unbind(0)))
     out.update(n=n, chain_of=chain_of, ovf=ovf)
     return out

@@ -23,7 +23,6 @@ from ..index.reference import DeviceReference
 from ..ops import sw as swops
 from ..ops.smem import any_by
 from ..ops.smem_sweep import pack_reads, read_window
-from ..utils.profiling import host_read
 from .chain import ChainBatch
 
 _I32 = torch.int32
@@ -181,6 +180,10 @@ def extend_chains(cb: ChainBatch, codes, lens, dref: DeviceReference,
     rpacked = pack_reads(codes)
     q_left = read_window(rpacked, gread[perm_l], gqb_s - L,
                          glens[perm_l], L).flip(1)
+    # every qn below is at most the read's length, at most L, the query
+    # windows' width: the SW kernel's bound on qlen holds by shape (a
+    # capture does not read it back, ops/sw.sw_extend_kernel)
+    assert q_left.shape[1] == L
     t_left = dref.fetch_window(grb_s - TP, TP, reverse=True)
     rl_s, wl_s = run_retry(
         q_left, qn_l[perm_l], t_left,
@@ -233,9 +236,14 @@ def extend_chains(cb: ChainBatch, codes, lens, dref: DeviceReference,
     payload = torch.stack([g_qb, g_rb, g_qe, g_re, g_score, g_truesc,
                            g_w, grid, glen, gchain,
                            glive.to(_I32)], dim=1).to(_I32)
-    fills = host_read(torch.tensor, [0, 0, 0, 0, -1, -1, opt.w, -1, 0, -1,
-                                     0], dtype=_I32, device=dev)
-    out = fills.expand(B * E + 1, 11).clone()
+    # the columns' fills of slots no job writes, set on the device (fill_
+    # takes the value as a kernel argument; an item assignment would copy
+    # it from the host)
+    out = torch.zeros((B * E + 1, 11), dtype=_I32, device=dev)
+    out[:, 4:6].fill_(-1)
+    out[:, 6].fill_(opt.w)
+    out[:, 7].fill_(-1)
+    out[:, 9].fill_(-1)
     out[greg] = payload
     out = out[:B * E].reshape(B, E, 11)
     qb, rb, qe, re = (out[..., i] for i in range(4))

@@ -81,11 +81,11 @@ extern "C" int fgdp_chain_flt(const int* n, const int* pos, const int* crid,
             min_chain_weight, min_seed_len, max_chain_gap,
             max_chain_extend, mask_level, drop_ratio, kept};
   cudaStream_t s = (cudaStream_t)stream;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (B > 0) {
     const int blocks = (B + warps - 1) / warps;
     chain_flt_kernel<<<blocks, warps * 32, shmem, s>>>(a);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

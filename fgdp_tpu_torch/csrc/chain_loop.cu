@@ -99,9 +99,9 @@ extern "C" int fgdp_chain_loop(const int* qbeg, const int* rbeg,
   const int K = (C + 31) / 32;
   if (K <= CH_MAX_K) {
     *path = 0;
-    if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+    fgdp_record(ev_start, s);
     if (B > 0) launch_regs(K, a, s);
-    if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+    fgdp_record(ev_end, s);
     return (int)cudaGetLastError();
   }
   const size_t shmem = (size_t)kWarps * CH_NFIELDS * C * sizeof(int);
@@ -112,11 +112,11 @@ extern "C" int fgdp_chain_loop(const int* qbeg, const int* rbeg,
     if (e != cudaSuccess) return (int)e;
   }
   *path = 1;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (B > 0) {
     const int blocks = (B + kWarps - 1) / kWarps;
     chain_wide_kernel<<<blocks, kWarps * 32, shmem, s>>>(a);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,23 @@
 #define FGDP_HD inline
 #endif
 
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+// Records a launch's timing event `ev` (a cudaEvent_t; none when null) on
+// stream `s`. While `s` is being captured into a CUDA graph the record is
+// an external node of the graph, so that every replay records it again.
+static inline void fgdp_record(void* ev, cudaStream_t s) {
+  if (ev == nullptr) return;
+  cudaStreamCaptureStatus st = cudaStreamCaptureStatusNone;
+  if (cudaStreamIsCapturing(s, &st) == cudaSuccess &&
+      st == cudaStreamCaptureStatusActive)
+    cudaEventRecordWithFlags((cudaEvent_t)ev, s, cudaEventRecordExternal);
+  else
+    cudaEventRecord((cudaEvent_t)ev, s);
+}
+#endif
+
 FGDP_HD int fgdp_min(int a, int b) { return a < b ? a : b; }
 FGDP_HD int fgdp_max(int a, int b) { return a > b ? a : b; }
 

@@ -93,7 +93,7 @@ extern "C" int fgdp_gather_chase(const int* occ, long long nblocks,
   cudaStream_t s = (cudaStream_t)stream;
   const int4* o = reinterpret_cast<const int4*>(occ);
   int rc = 0;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (sync) {
     void* args[] = {&o, &nblocks, &chains, &hops, &p0, &out, &slots};
     rc = (int)cudaLaunchCooperativeKernel(
@@ -105,7 +105,7 @@ extern "C" int fgdp_gather_chase(const int* occ, long long nblocks,
     gather_chase_kernel<0><<<blocks, threads, 0, s>>>(o, nblocks, chains,
                                                       hops, p0, out, slots);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

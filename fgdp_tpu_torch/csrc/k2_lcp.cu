@@ -109,7 +109,7 @@ extern "C" int fgdp_k2_lcp(
   int blocks = 0;
   const int R = NK > 0 ? lanes_per_thread(NK, &blocks) : 1;
   if (R == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   int rc = 0;
   if (NK > 0) {
     if (R == 1)
@@ -119,7 +119,7 @@ extern "C" int fgdp_k2_lcp(
     else
       rc = launch<16>(A, max_rounds, slots, blk, s);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

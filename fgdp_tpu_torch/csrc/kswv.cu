@@ -155,7 +155,7 @@ extern "C" int fgdp_kswv(const int* q, const int* t, const int* qlen,
   if (wide && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   *path = wide ? 1 : 0;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (J > 0) {
     if (wide)
       kswv_wide_kernel<<<(J + KSWV_WARPS - 1) / KSWV_WARPS, KSWV_WARPS * 32,
@@ -163,6 +163,6 @@ extern "C" int fgdp_kswv(const int* q, const int* t, const int* qlen,
     else
       launch_regs(K, KSWV_ARGS, s);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

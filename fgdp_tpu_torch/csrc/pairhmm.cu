@@ -137,11 +137,11 @@ extern "C" int fgdp_pairhmm_f32(const int* reads, const float* pq,
   const int K = (H + 1 + 31) / 32;
   if (K <= HMM_MAX_K) {
     *path = 0;
-    if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+    fgdp_record(ev_start, s);
     if (NP > 0)
       launch_regs(K, reads, pq, trans, haps, rlens, hlens, NP, R, H,
                   n_doubling, acc, s);
-    if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+    fgdp_record(ev_end, s);
     return (int)cudaGetLastError();
   }
   const size_t per_warp = 6 * (size_t)(H + 1) * sizeof(float);
@@ -157,10 +157,10 @@ extern "C" int fgdp_pairhmm_f32(const int* reads, const float* pq,
     if (e != cudaSuccess) return (int)e;
   }
   *path = 1;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (NP > 0)
     pairhmm_wide_kernel<<<(NP + warps - 1) / warps, warps * 32, bytes, s>>>(
         HMM_ARGS);
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

@@ -100,9 +100,9 @@ extern "C" int fgdp_seed_strategy(
   const long long need = ((long long)B + K3_GROUPS - 1) / K3_GROUPS;
   const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const int blocks = (int)(need < most ? need : most);
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (B > 0)
     seed_strategy_kernel<<<blocks, threads, smem, s>>>(A, staged);
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

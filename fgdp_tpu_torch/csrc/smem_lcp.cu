@@ -267,7 +267,7 @@ extern "C" int fgdp_smem_lcp(
   if (prc) return prc;
   int narrow = (B < SEED_NARROW_LANES && p.blocks < (1 << 13)) ? 1 : 0;
   const long long smem = lcp_stage_bytes(p, L);
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   int rc = 0;
   if (B > 0) {
     void* args[] = {&A, &max_rounds, &slots, &blk, &narrow};
@@ -275,7 +275,7 @@ extern "C" int fgdp_smem_lcp(
                                           p.blocks, LCP_THREADS, args,
                                           (size_t)smem, s);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   if (rc) return rc;
   return (int)cudaGetLastError();
 }

@@ -110,9 +110,9 @@ extern "C" int fgdp_sw_extend(const int* query, const int* target,
   const int K = (QP + 2 + 31) / 32;
   if (QP < 0 || K > SW_MAX_K) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   if (J > 0) launch_k(K, query, target, qlen, tlen, h0, J, QP, TP, w, p,
                       out, cells, rows, s);
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

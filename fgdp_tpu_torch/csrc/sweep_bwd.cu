@@ -51,8 +51,8 @@ extern "C" int fgdp_sweep_bwd(
                  NL, l2ref, out_m, out_kf, out_sf, work};
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = (int)(((long long)NL + SWB_THREADS - 1) / SWB_THREADS);
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, st);
+  fgdp_record(ev_start, st);
   if (NL > 0) sweep_bwd_kernel<<<blocks, SWB_THREADS, 0, st>>>(A);
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, st);
+  fgdp_record(ev_end, st);
   return (int)cudaGetLastError();
 }

@@ -103,7 +103,7 @@ static void sweep_fwd_launch(const SweepFwdArgs& A, void* ev_start,
                                                 smem);
   const long long need = ((long long)A.NL + SWEEP_GROUPS - 1) / SWEEP_GROUPS;
   const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-  if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+  fgdp_record(ev_start, s);
   kern<<<(int)(need < most ? need : most), SWF_THREADS, smem, s>>>(A);
 }
 
@@ -150,12 +150,12 @@ extern "C" int fgdp_sweep_fwd(
                  work};
   cudaStream_t s = (cudaStream_t)stream;
   if (NL == 0) {
-    if (ev_start != nullptr) cudaEventRecord((cudaEvent_t)ev_start, s);
+    fgdp_record(ev_start, s);
   } else if (sweep_staged(L)) {
     sweep_fwd_dispatch<true>(A, restart, walk, ev_start, s);
   } else {
     sweep_fwd_dispatch<false>(A, restart, walk, ev_start, s);
   }
-  if (ev_end != nullptr) cudaEventRecord((cudaEvent_t)ev_end, s);
+  fgdp_record(ev_end, s);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,11 @@ with ctypes. The build happens at first use (one nvcc per source, all started
 together) and again whenever a source is newer than its library.
 
 The C entry points launch on the stream they are given and return
-cudaGetLastError(); `check` raises when that is not 0.
+cudaGetLastError(); `check` raises when that is not 0. While their stream
+is being captured into a CUDA graph (pipeline._GraphRunner) they record
+their event pair as external nodes of the graph (`fgdp_record` in
+csrc/common.cuh), and the wrappers here count and time the capture's
+launches through CAPTURE instead (`tally`, `event_pair`).
 
 build_host_twin() compiles csrc/host_twin.cc with g++: the kernels' own
 per-job, per-read and per-pair logic as a host library (one serial lane,
@@ -110,20 +114,83 @@ _libs: dict = {}
 build_log: dict = {}
 # launches per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (the smoke run reads these around the main
-# path to show that the path went through the kernels)
+# path to show that the path went through the kernels). A replayed CUDA
+# graph of the device program adds its captured launches on every
+# replay, as if each had been launched again.
 LAUNCHES = {name: 0 for name in KERNELS}
 # CUDA event pairs (start, end) around each launch of a kernel, recorded
 # only while a caller has put a list under its name (the smoke run's
-# scale phases sum them into the kernel's time on the main path). The C
-# entry points of SW, the chain loop, the chain filter, kswv, PairHMM and
-# the seeding kernels (the sweep's too) record the pair themselves, right around the
-# launch, so no host time falls between the two events.
+# scale phases and the benchmark's traced run sum them into the kernel's
+# time on the main path). The C entry points of SW, the chain loop, the
+# chain filter, kswv, PairHMM and the seeding kernels (the sweep's too)
+# record the pair themselves, right around the launch, so no host time
+# falls between the two events. A replay of a captured device program
+# appends one entry a captured launch of a timed kernel, once the fetch
+# that follows the replay has folded it: an (Elapsed, None) pair whose
+# first element's elapsed_time gives that replay's kernel ms, so that
+# `sum(s.elapsed_time(e) for s, e in TIMED[name])` counts every replay.
 TIMED: dict = {}
+# the launches of the capture in progress (a Capture), None outside one
+CAPTURE = None
+
+
+class Capture:
+    """What the wrappers launched while the device program was captured
+    into a CUDA graph: `counts`, (counter dict, key) a launch (LAUNCHES or
+    a path counter), which each replay adds again; `timed`, (kernel,
+    start, end) external CUDA events that every replay records around the
+    launch."""
+
+    def __init__(self):
+        self.counts = []
+        self.timed = []
+
+
+class Elapsed:
+    """A replayed launch's kernel ms, as TIMED holds it: the first of an
+    (Elapsed, None) pair, so that `s.elapsed_time(e)` reads it."""
+
+    def __init__(self, ms: float):
+        self.ms = ms
+
+    def elapsed_time(self, end=None) -> float:
+        return self.ms
 
 
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def tally(counter: dict, key):
+    """counter[key] += 1 for a launch; under a capture the capture keeps
+    it, and each replay of the graph adds it."""
+    if CAPTURE is not None:
+        CAPTURE.counts.append((counter, key))
+    else:
+        counter[key] += 1
+
+
+def event_pair(name: str, stream) -> list:
+    """The [start, end] CUDA events the C entry point of kernel `name`
+    records around its launch on `stream`, or [None, None] when no caller
+    asked for its time (TIMED). A first record here makes torch create
+    the events. Under a capture every launch gets an external pair, kept
+    in CAPTURE: the graph records it on each replay, and the replay's fold
+    reads it when TIMED asks for the kernel then."""
+    if CAPTURE is not None:
+        ev = [torch.cuda.Event(enable_timing=True, external=True)
+              for _ in range(2)]
+        CAPTURE.timed.append((name, *ev))
+    else:
+        timed = TIMED.get(name)
+        if timed is None:
+            return [None, None]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        timed.append(ev)
+    for e in ev:
+        e.record(stream)
+    return ev
 
 
 def _nvcc():
@@ -240,25 +307,21 @@ def coop_grid(name: str, fn, n: int, device):
     return grid[0], grid[1]
 
 
+def event_ptrs(ev) -> tuple:
+    """An event pair as the C entry points take it (null for None)."""
+    return tuple(e.cuda_event if e is not None else None for e in ev)
+
+
 def launch(name: str, fn, *args, device):
     """Call the C entry point fn(*args, ev_start, ev_end, stream) on the
-    current stream of `device`, with an event pair appended to
-    TIMED[name] when a caller asked for it (the C side records the pair
-    around its launch; a first record here makes torch create the
-    events); raises when the launch fails, else counts it."""
-    timed = TIMED.get(name)
+    current stream of `device`, with the event pair of `event_pair`;
+    raises when the launch fails, else counts it (`tally`)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device)
-        ev = [None, None]
-        if timed is not None:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            for e in ev:
-                e.record(stream)
-            timed.append(ev)
-        rc = fn(*args, *(e.cuda_event if e is not None else None
-                         for e in ev), stream.cuda_stream)
+        ev = event_pair(name, stream)
+        rc = fn(*args, *event_ptrs(ev), stream.cuda_stream)
     check(rc, name)
-    LAUNCHES[name] += 1
+    tally(LAUNCHES, name)
 
 
 def build_host_twin():

@@ -94,18 +94,10 @@ def kswv_forward_kernel(q, qlen, t, tlen, *, a, b, o_del, e_del, o_ins,
     # the wide path keeps each job's H and E rows in global scratch
     scratch = torch.empty((J, 2, QP), dtype=_I32, device=dev) \
         if lib.fgdp_kswv_wide(QP, int(a), int(b)) else None
-    timed = kernels.TIMED.get("kswv")
     path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        ev = [None, None]
-        if timed is not None:
-            # the C side records the pair around the launch; a first
-            # record here makes torch create the events
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            for e in ev:
-                e.record(stream)
-            timed.append(ev)
+        ev = kernels.event_pair("kswv", stream)
         rc = lib.fgdp_kswv(
             conv["q"].data_ptr(), conv["t"].data_ptr(),
             conv["qlen"].data_ptr(), conv["tlen"].data_ptr(), J, QP, TP,
@@ -114,11 +106,11 @@ def kswv_forward_kernel(q, qlen, t, tlen, *, a, b, o_del, e_del, o_ins,
             row_max.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             ctypes.addressof(path),
-            *(e.cuda_event if e is not None else None for e in ev),
+            *kernels.event_ptrs(ev),
             stream.cuda_stream)
     kernels.check(rc, "kswv")
-    kernels.LAUNCHES["kswv"] += 1
-    PATH_LAUNCHES[KERNEL_PATHS[path.value]] += 1
+    kernels.tally(kernels.LAUNCHES, "kswv")
+    kernels.tally(PATH_LAUNCHES, KERNEL_PATHS[path.value])
     return best, te, best_row, row_max
 
 

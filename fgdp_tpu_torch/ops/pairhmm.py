@@ -171,29 +171,21 @@ def forward_f32_kernel(reads, rlens, pq, trans, haps, hlens,
                          f"[0, {H}]")
     acc = torch.empty(NP, dtype=_F32, device=dev)
     lib = kernels.load("pairhmm")
-    timed = kernels.TIMED.get("pairhmm")
     path = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        ev = [None, None]
-        if timed is not None:
-            # the C side records the pair around the launch; a first
-            # record here makes torch create the events
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            for e in ev:
-                e.record(stream)
-            timed.append(ev)
+        ev = kernels.event_pair("pairhmm", stream)
         rc = lib.fgdp_pairhmm_f32(
             conv["reads"].data_ptr(), conv["pq"].data_ptr(),
             conv["trans"].data_ptr(), conv["haps"].data_ptr(),
             conv["rlens"].data_ptr(), conv["hlens"].data_ptr(), NP, R, H,
             n_doublings(H, n_doubling_cap), acc.data_ptr(),
             ctypes.addressof(path),
-            *(e.cuda_event if e is not None else None for e in ev),
+            *kernels.event_ptrs(ev),
             stream.cuda_stream)
     kernels.check(rc, "pairhmm")
-    kernels.LAUNCHES["pairhmm"] += 1
-    PATH_LAUNCHES[KERNEL_PATHS[path.value]] += 1
+    kernels.tally(kernels.LAUNCHES, "pairhmm")
+    kernels.tally(PATH_LAUNCHES, KERNEL_PATHS[path.value])
     return _log10_scaled(acc), acc
 
 

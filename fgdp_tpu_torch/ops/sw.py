@@ -88,8 +88,11 @@ def sw_extend_kernel(query, qlen, target, tlen, h0, w: int, p: SWParams,
                              f"rows, expected {J}")
     if qlen.dim() != 1 or tlen.dim() != 1 or h0.dim() != 1:
         raise ValueError("sw_extend kernel: qlen/tlen/h0 must be 1-D")
-    # the kernel reads query row j up to qlen and keeps QP + 2 band cells
-    if J and host_read(int, qlen.max()) > QP:
+    # the kernel reads query row j up to qlen and keeps QP + 2 band cells;
+    # a capture cannot read the card, and its caller's shapes bound qlen
+    # by QP (align/extend.extend_chains)
+    if J and not torch.cuda.is_current_stream_capturing() and \
+            host_read(int, qlen.max()) > QP:
         raise ValueError(f"sw_extend kernel: qlen above the query width "
                          f"{QP}")
     for name, a in (("cells", cells), ("rows", rows)):
@@ -99,17 +102,9 @@ def sw_extend_kernel(query, qlen, target, tlen, h0, w: int, p: SWParams,
                              "on the jobs' device")
     out = torch.empty((6, J), dtype=_I32, device=dev)
     lib = kernels.load("sw_extend")
-    timed = kernels.TIMED.get("sw_extend")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        ev = [None, None]
-        if timed is not None:
-            # the C side records the pair around the launch; a first
-            # record here makes torch create the events
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            for e in ev:
-                e.record(stream)
-            timed.append(ev)
+        ev = kernels.event_pair("sw_extend", stream)
         rc = lib.fgdp_sw_extend(
             query.data_ptr(), target.data_ptr(), qlen.data_ptr(),
             tlen.data_ptr(), h0.data_ptr(), J, QP, TP, int(w),
@@ -117,10 +112,10 @@ def sw_extend_kernel(query, qlen, target, tlen, h0, w: int, p: SWParams,
             p.mat_max, p.mat_mis, p.mat_amb, out.data_ptr(),
             cells.data_ptr() if cells is not None else None,
             rows.data_ptr() if rows is not None else None,
-            *(e.cuda_event if e is not None else None for e in ev),
+            *kernels.event_ptrs(ev),
             stream.cuda_stream)
     kernels.check(rc, "sw_extend")
-    kernels.LAUNCHES["sw_extend"] += 1
+    kernels.tally(kernels.LAUNCHES, "sw_extend")
     return SWResult(*out.unbind(0))
 
 

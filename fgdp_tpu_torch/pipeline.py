@@ -20,7 +20,10 @@ worker pool) have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import logging
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -35,6 +38,7 @@ from .index.fmindex import FMIndex
 from .index.lcptree import LcpTree
 from .index.reference import DeviceReference, PackedReference
 from .ops.fm import DeviceFMIndex
+from .ops import kernels
 from .ops.smem import compact_order
 from .utils import dna
 from .utils.device import resolve_device
@@ -44,16 +48,29 @@ _I32 = torch.int32
 STAGES = ("seed", "chain", "extend", "pack")
 
 
+def _add_stages(acc, marks):
+    """Add the spans between (stage ended, CUDA event) marks to acc."""
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        acc[name] = acc.get(name, 0.0) + a.elapsed_time(b)
+
+
 class _StageClock:
     """Per-stage ms of one device program run into a dict (off when the
     dict is None). On the card each stage boundary records a CUDA event
     on the current stream and nothing waits: `fold` adds each stage's
-    span on the device's timeline once a fetch on that stream has
-    waited for the events. On the CPU a stage is host wall time, added
-    at its end."""
+    span on the device's timeline once a fetch has waited for the
+    events. On the CPU a stage is host wall time, added at its end.
 
-    def __init__(self, acc, device):
+    A captured program (_GraphRunner) keeps the marks of the clock it
+    was captured with, external events that are nodes of its graph: each
+    replay records them again, and the replay's fold (_Replay) adds their
+    spans at the fetch that follows it, as `fold` does for a run op by
+    op. A replay's spans are its stages on the device's timeline, with
+    no host enqueueing inside them."""
+
+    def __init__(self, acc, device, external=False):
         self.acc = acc
+        self.external = external
         self.marks = []                 # (stage ended, its CUDA event)
         self.cuda = acc is not None and device.type == "cuda"
         if self.cuda:
@@ -62,7 +79,7 @@ class _StageClock:
         self.t = time.perf_counter()
 
     def _event(self):
-        e = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True, external=self.external)
         e.record(self.stream)
         return e
 
@@ -77,10 +94,9 @@ class _StageClock:
         self.t = now
 
     def fold(self):
-        """Add the recorded stages to the dict; call only after a fetch
-        on the stream that followed the run (its events are then done)."""
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            self.acc[name] = self.acc.get(name, 0.0) + a.elapsed_time(b)
+        """Add the recorded stages to the dict; call only once a fetch
+        has waited for the run (its events are then done)."""
+        _add_stages(self.acc, self.marks)
         self.marks = []
 
 
@@ -202,7 +218,7 @@ def pack_regs(regs, cap_per_read: int = 4):
     hdr = torch.stack(
         [kept | (ovf.to(_I32) << 16) | (regs.ovf_seed.to(_I32) << 17),
          regs.frac_rep.to(torch.float32).contiguous().view(_I32)], dim=1)
-    head = host_read(torch.tensor, [E, B], dtype=_I32, device=dev)
+    head = torch.arange(2, dtype=_I32, device=dev) * (B - E) + E
     return torch.cat([head, hdr.reshape(-1), payload.reshape(-1)])
 
 
@@ -254,15 +270,312 @@ def device_align_packed(dfm, dref, codes, lens, active, opt, shapes,
     return buf
 
 
+_log = logging.getLogger(__name__)
+_POOLS: dict = {}       # device index -> the _Pool its runners share
+
+
+class _Pool:
+    """What every runner on one card shares: the memory pool (a MemPool)
+    that the warm runs allocate from and the graphs are captured into,
+    and the side stream both run on (the caching allocator reuses a block
+    only on the stream that freed it). Once every graph captured into it
+    is gone (their Aligners with them), the next capture takes a new
+    pool: torch's pinned-memory allocator refuses a pool id whose graphs
+    all died."""
+
+    def __init__(self, device):
+        self.device = device            # with its index
+        self.graphs = 0                 # live graphs captured into it
+        self.held = False
+        with torch.cuda.device(device):
+            self.mem = torch.cuda.MemPool()
+            self.side = torch.cuda.Stream(device)
+
+    @staticmethod
+    def of(device) -> "_Pool":
+        idx = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        pool = _POOLS.get(idx)
+        if pool is None or (pool.held and not pool.graphs):
+            pool = _POOLS[idx] = _Pool(torch.device("cuda", idx))
+        return pool
+
+    def hold(self, graph):
+        self.graphs += 1
+        self.held = True
+        weakref.finalize(graph, self._release)
+
+    def _release(self):
+        self.graphs -= 1
+
+
+class _Staging:
+    """Host buffers for one dispatch's inputs, bound to its shapes: numpy
+    views `codes` int8[B, L], `lens` int32[B] and `active` bool[B] that
+    the caller writes. On the card they are pinned, and `ready` is the
+    event after their last copy to the card: the runner hands a staging
+    out again only once that event is done."""
+
+    def __init__(self, shapes, pin):
+        B, L = shapes.batch_reads, shapes.read_len
+        self.shapes = shapes
+        self.host = (torch.empty((B, L), dtype=torch.int8, pin_memory=pin),
+                     torch.empty(B, dtype=_I32, pin_memory=pin),
+                     torch.empty(B, dtype=torch.bool, pin_memory=pin))
+        self.codes, self.lens, self.active = (t.numpy() for t in self.host)
+        self.ready = None
+
+
+class _Program:
+    """One shape's device program on the card: its static inputs, its
+    graph and static output once captured (`eager` after a failed
+    capture), what the capture launched (kernels.Capture) and its stage
+    clock's marks, the free staging and pinned output buffers, and the
+    replay whose events are not folded yet."""
+
+    def __init__(self, shapes, device):
+        B, L = shapes.batch_reads, shapes.read_len
+        self.codes = torch.empty((B, L), dtype=torch.int8, device=device)
+        self.lens = torch.empty(B, dtype=_I32, device=device)
+        self.active = torch.empty(B, dtype=torch.bool, device=device)
+        self.graph = self.out = self.launches = self.unfolded = None
+        self.marks = []
+        self.eager = False
+        self.staging = []
+        self.outs = []
+
+
+class _Dispatch:
+    """A card dispatch in flight: the pinned buffer its packed regs are
+    copied into, and the event after that copy."""
+
+    def __init__(self, prog, host, done):
+        self.prog, self.host, self.done = prog, host, done
+
+
+class _Replay:
+    """A replay's events, folded at the fetch that follows it: the
+    program's stage marks into `acc` (when a dict) and, for each captured
+    launch of a kernel that TIMED asked for at the replay, one
+    kernels.Elapsed entry of that replay's kernel ms."""
+
+    def __init__(self, prog, acc):
+        self.prog, self.acc, self.done = prog, acc, None
+        self.timed = [(kernels.TIMED[name], a, b)
+                      for name, a, b in prog.launches.timed
+                      if kernels.TIMED.get(name) is not None]
+
+    def __bool__(self):
+        return self.acc is not None or bool(self.timed)
+
+    def fold(self):
+        if self.acc is not None:
+            _add_stages(self.acc, self.prog.marks)
+        for lst, a, b in self.timed:
+            lst.append((kernels.Elapsed(a.elapsed_time(b)), None))
+        if self.prog.unfolded is self:
+            self.prog.unfolded = None
+
+
+class _GraphRunner:
+    """Dispatches an Aligner's device program, `program(shapes, codes,
+    lens, active, clock)` -> packed reg buffer, and brings its result to
+    the host.
+
+    On the CPU a dispatch runs the program op by op, as it always has.
+    On the card each distinct shape (the BatchShapes of a dispatch, its
+    batch size included) is a _Program: its first dispatch runs the
+    program op by op on a side stream (the warm run torch asks for before
+    a capture; its result is that dispatch's), then captures it into a
+    CUDA graph; every later dispatch of the shape copies the staged inputs
+    into the program's static inputs (non-blocking, from pinned memory),
+    replays the graph on the current stream and copies its static output
+    into a pinned buffer of that dispatch alone, since the next replay
+    overwrites it. Nothing in a replay waits for the card. A capture that
+    raises leaves its shape to run op by op for good, and every shape
+    not captured yet in this process too (a failed capture leaves state
+    behind in torch's allocator that fails the captures after it); the
+    exception is logged once, and the graphs captured before replay on.
+
+    Every program of every runner on a device is captured into one
+    memory pool, which the warm runs allocate from too (_Pool): a capture
+    or a warm run may take memory that an earlier graph used for its
+    temporaries, so two programs may write the same bytes. That is safe
+    only because they all run in one order (the side stream waits for the
+    current one before a warm run and a capture, the current one for the
+    side stream after), each graph replays as a whole, and each run's
+    output is copied out of the pool (stream-ordered) before any other
+    program runs; the static inputs lie outside the pool. ShardedAligner's
+    ten Aligners on one card thus hold one pool, about the size of the
+    largest program's temporaries.
+
+    Counts (PROF): DP_REPLAY, a dispatch replayed; DP_CAPTURE, a dispatch
+    that captured its shape (phase DP_CAPTURE: the host's time capturing);
+    DP_EAGER, a card dispatch run op by op (after a failed capture, or
+    with `_force_eager` set on a runner or on the class: the card tests'
+    and the smoke run's way to the op-by-op program).
+    A replayed launch counts in kernels.LAUNCHES, and its kernel time and
+    the stage clock's spans fold as a run's do (_Replay)."""
+
+    _force_eager = False
+    _capture_failed = False     # in this process, by any runner
+
+    def __init__(self, device, program):
+        self.device = device
+        self.program = program
+        self.cuda = device.type == "cuda"
+        self.programs = {}          # shapes -> _Program
+        self.pending = []           # dispatches whose events wait a fold
+
+    def inputs(self, shapes) -> _Staging:
+        """Host buffers for a dispatch of `shapes` (filled by the caller,
+        then passed to `run`)."""
+        if not self.cuda:
+            return _Staging(shapes, pin=False)
+        prog = self._program(shapes)
+        for i, st in enumerate(prog.staging):
+            if st.ready.query():
+                return prog.staging.pop(i)
+        return _Staging(shapes, pin=True)
+
+    def _program(self, shapes):
+        prog = self.programs.get(shapes)
+        if prog is None:
+            prog = self.programs[shapes] = _Program(shapes, self.device)
+        return prog
+
+    def run(self, st: _Staging, stage_ms):
+        """Dispatch the program on `st`'s inputs; returns what `fetch`
+        takes."""
+        if not self.cuda:
+            t = lambda a: host_read(torch.as_tensor, a, device=self.device)
+            clock = _StageClock(stage_ms, self.device)
+            return self.program(st.shapes, t(st.codes), t(st.lens),
+                                t(st.active), clock)
+        stream = torch.cuda.current_stream(self.device)
+        prog = self._program(st.shapes)
+        for dst, src in zip((prog.codes, prog.lens, prog.active), st.host):
+            dst.copy_(src, non_blocking=True)
+        st.ready = torch.cuda.Event()
+        st.ready.record(stream)
+        prog.staging.append(st)
+        if prog.graph is None or self._force_eager:
+            return self._eager(prog, st.shapes, stage_ms, stream)
+        last = prog.unfolded
+        if last is not None:
+            # this replay records its events again: fold the last one's
+            # first (the stream keeps primaries in flight between fetches)
+            host_read(last.done.synchronize)
+            last.fold()
+            self.pending.remove(last)
+        prog.graph.replay()
+        for counter, key in prog.launches.counts:
+            counter[key] += 1
+        PROF.count("DP_REPLAY")
+        rep = _Replay(prog, stage_ms)
+        if rep:
+            prog.unfolded = rep
+        return self._out(prog, prog.out, stream, rep or None)
+
+    def _eager(self, prog, shapes, stage_ms, stream):
+        """The program op by op; on a shape's first dispatch, on a side
+        stream and followed by its capture."""
+        if prog.eager or self._force_eager or \
+                _GraphRunner._capture_failed:
+            PROF.count("DP_EAGER")
+            clock = _StageClock(stage_ms, self.device)
+            out = self.program(shapes, prog.codes, prog.lens, prog.active,
+                               clock)
+            return self._out(prog, out, stream, clock if clock.marks
+                             else None)
+        pool = _Pool.of(self.device)
+        pool.side.wait_stream(stream)
+        with torch.cuda.stream(pool.side):
+            clock = _StageClock(stage_ms, self.device)
+            with torch.cuda.use_mem_pool(pool.mem, device=pool.device):
+                out = self.program(shapes, prog.codes, prog.lens,
+                                   prog.active, clock)
+            with PROF.phase("DP_CAPTURE"):
+                captured = self._capture(prog, shapes, pool)
+        stream.wait_stream(pool.side)
+        out.record_stream(stream)
+        PROF.count("DP_CAPTURE" if captured else "DP_EAGER")
+        return self._out(prog, out, stream, clock if clock.marks else None)
+
+    def _capture(self, prog, shapes, pool) -> bool:
+        graph = torch.cuda.CUDAGraph()
+        launches = kernels.Capture()
+        kernels.CAPTURE = launches
+        # the collector may free other graphs or events, which a capture
+        # does not permit (it would be invalidated)
+        collect = gc.isenabled()
+        gc.disable()
+        try:
+            graph.capture_begin(pool=pool.mem.id,
+                                capture_error_mode="thread_local")
+            try:
+                clock = _StageClock({}, self.device, external=True)
+                out = self.program(shapes, prog.codes, prog.lens,
+                                   prog.active, clock)
+            finally:
+                graph.capture_end()
+        except Exception as e:          # noqa: BLE001 - any fault of a capture
+            prog.eager = True
+            if not _GraphRunner._capture_failed:
+                _GraphRunner._capture_failed = True
+                _log.warning("capturing the device program of %s failed; "
+                             "it and the shapes not captured yet run op by "
+                             "op: %r", shapes, e, exc_info=True)
+            return False
+        finally:
+            kernels.CAPTURE = None
+            if collect:
+                gc.enable()
+        pool.hold(graph)
+        prog.graph, prog.out, prog.launches = graph, out, launches
+        prog.marks = clock.marks
+        return True
+
+    def _out(self, prog, out, stream, fold):
+        host = prog.outs.pop() if prog.outs else torch.empty(
+            out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+        if fold is not None:
+            fold.done = done
+            self.pending.append(fold)
+        return _Dispatch(prog, host, done)
+
+    def fetch(self, d) -> np.ndarray:
+        """A dispatch's packed reg buffer on the host. On the card this
+        waits for its copy's event and, when events wait a fold, for the
+        newest dispatch's (the work queued since comes with it, as a
+        blocking copy's wait would), then folds them all."""
+        if not self.cuda:
+            return d.cpu().numpy()
+        d.done.synchronize()
+        if self.pending:
+            self.pending[-1].done.synchronize()
+            for f in self.pending:
+                f.fold()
+            self.pending.clear()
+        out = d.host.numpy().copy()
+        d.prog.outs.append(d.host)
+        return out
+
+
 class Aligner:
     """End-to-end single- and paired-end aligner over one reference.
 
     device=None runs on the CUDA card and raises without one; pass
-    device="cpu" to run on the CPU. `stage_ms` / `esc_stage_ms`, when
-    set to dicts, accumulate per-stage ms of the primary and the
-    escalated device runs (_StageClock: on the card each stage's span on
-    the device's timeline, added at the fetch that follows it; nothing
-    waits for the card on its account)."""
+    device="cpu" to run on the CPU. On the card each shape of the device
+    program is captured into a CUDA graph at its first dispatch and
+    replayed after (_GraphRunner). `stage_ms` / `esc_stage_ms`, when set
+    to dicts, accumulate per-stage ms of the primary and the escalated
+    device runs (_StageClock: on the card each stage's span on the
+    device's timeline, added at the fetch that follows it; nothing waits
+    for the card on its account)."""
 
     ESCALATE_LEVELS = 2
 
@@ -293,7 +606,7 @@ class Aligner:
         self._dev_opt = dataclasses.replace(self.opt, output_all=False)
         self.stage_ms = None
         self.esc_stage_ms = None
-        self._clocks = []       # stage clocks whose events are not folded
+        self._graphs = _GraphRunner(self.device, self._program)
         self.esc_reads = 0
         self.esc_calls = 0
 
@@ -326,42 +639,43 @@ class Aligner:
         return self.finalize_batch(names, seq_codes, quals, regs_np, id0,
                                    paired=True)
 
-    def _run(self, shapes, codes, lens, active, stage_ms):
-        """One device program run -> packed reg buffer on the device."""
-        t = lambda a: host_read(torch.as_tensor, a, device=self.device)
-        clock = _StageClock(stage_ms, self.device)
-        buf = device_align_packed(
-            self.dfm, self.dref, t(codes), t(lens), t(active),
-            opt=self._dev_opt, shapes=shapes, lcp_tree=self.lcp_tree,
-            lcp_isa=self.lcp_isa, clock=clock)
-        if clock.marks:
-            self._clocks.append(clock)
-        return buf
+    def _program(self, shapes, codes, lens, active, clock):
+        return device_align_packed(
+            self.dfm, self.dref, codes, lens, active, opt=self._dev_opt,
+            shapes=shapes, lcp_tree=self.lcp_tree, lcp_isa=self.lcp_isa,
+            clock=clock)
+
+    @property
+    def _clocks(self):
+        """Dispatches whose stage clock or kernel events wait a fold."""
+        return self._graphs.pending
+
+    def _run(self, staged, stage_ms):
+        """One device program run on a _Staging's inputs -> a dispatch
+        that _fetch brings to the host."""
+        return self._graphs.run(staged, stage_ms)
 
     def _fetch(self, buf) -> np.ndarray:
-        """A packed reg buffer on the host. The copy waits for all work
-        queued on the stream, so the stage clocks of every run
-        dispatched so far are done and fold here."""
-        out = buf.cpu().numpy()
-        for clock in self._clocks:
-            clock.fold()
-        self._clocks = []
-        return out
+        """A dispatch's packed reg buffer on the host; the stage clocks
+        and kernel events of the runs dispatched so far fold here."""
+        return self._graphs.fetch(buf)
 
     def _device_regs_async(self, seq_codes):
         """Dispatch the primary device program for one batch; returns
-        the packed reg buffer on the device."""
+        the dispatch (_run)."""
         B = len(seq_codes)
         L = self.shapes.read_len
-        codes = np.full((B, L), 4, np.int8)
-        lens = np.zeros(B, np.int32)
+        shapes = self.shapes if B == self.shapes.batch_reads else \
+            dataclasses.replace(self.shapes, batch_reads=B)
+        st = self._graphs.inputs(shapes)
+        st.codes.fill(4)
         for i, s in enumerate(seq_codes):
             n = min(len(s), L)
-            codes[i, :n] = np.asarray(s[:n], np.int8)
-            lens[i] = n
+            st.codes[i, :n] = np.asarray(s[:n], np.int8)
+            st.lens[i] = n
+        st.active.fill(True)
         with PROF.phase("MEM_DEVICE"):
-            return self._run(self.shapes, codes, lens, np.ones(B, bool),
-                             self.stage_ms)
+            return self._run(st, self.stage_ms)
 
     def _regs_to_np(self, regs, seq_codes=None):
         out = unpack_regs(self._fetch(regs))
@@ -407,15 +721,17 @@ class Aligner:
             pack_cap=0, jobs_pool_per_read=s.max_seeds * 2 * f,
             ext_jobs_per_read=6 * f)
 
-    def _esc_exec(self, flavor, level, B_esc, codes, lens, active):
-        """Run one escalated chunk on the aligner's device; returns its
-        packed reg buffer on the host."""
+    def _rung_shapes(self, flavor, level, B_esc):
         mk = {"full": self._escalated_shapes,
               "k2w": self._k2_wide_shapes,
               "cw": self._chain_wide_shapes}[flavor]
-        esh = dataclasses.replace(mk(level), batch_reads=B_esc)
+        return dataclasses.replace(mk(level), batch_reads=B_esc)
+
+    def _esc_exec(self, flavor, level, staged):
+        """Run one escalated chunk of the rung (flavor, level) on the
+        aligner's device; returns its packed reg buffer on the host."""
         with PROF.phase("ESC_DISPATCH"):
-            buf = self._run(esh, codes, lens, active, self.esc_stage_ms)
+            buf = self._run(staged, self.esc_stage_ms)
         with PROF.phase("ESC_FETCH"):
             return self._fetch(buf)
 
@@ -463,17 +779,18 @@ class Aligner:
                     PROF.count("ESC_ACTIVE", len(chunk))
                     PROF.count("ESC_LANES", B_esc)
                     with PROF.phase("ESC_PACK"):
-                        codes = np.full((B_esc, L), 4, np.int32)
-                        lens = np.zeros(B_esc, np.int32)
-                        active = np.zeros(B_esc, bool)
+                        st = self._graphs.inputs(
+                            self._rung_shapes(flavor, level, B_esc))
+                        st.codes.fill(4)
+                        st.lens.fill(0)
+                        st.active.fill(False)
                         for j, b in enumerate(chunk):
                             s = seq_codes[b]
                             n = min(len(s), L)
-                            codes[j, :n] = np.asarray(s[:n], np.int32)
-                            lens[j] = n
-                            active[j] = True
-                    buf = self._esc_exec(flavor, level, B_esc, codes, lens,
-                                         active)
+                            st.codes[j, :n] = np.asarray(s[:n], np.int8)
+                            st.lens[j] = n
+                            st.active[j] = True
+                    buf = self._esc_exec(flavor, level, st)
                     with PROF.phase("ESC_MERGE"):
                         still += self._esc_merge(regs_np, seed_flag,
                                                  chunk, unpack_regs(buf))

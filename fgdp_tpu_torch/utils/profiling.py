@@ -28,7 +28,10 @@ same less the phases opened inside it on the same thread; `hits`: calls):
   DP_SYNC       host_read: a point of the device program where the host
                 waits for the card, a read of a device value or a
                 blocking copy to the card (inside MEM_DEVICE or
-                ESC_DISPATCH on the aligner's path)
+                ESC_DISPATCH on the aligner's path; a replayed dispatch
+                has none)
+  DP_CAPTURE    pipeline._GraphRunner: capturing a shape's device program
+                into a CUDA graph (inside MEM_DEVICE or ESC_DISPATCH)
   WORKER_SAM    Aligner.finalize_batch: finalize in the main process
   POOL_SUBMIT   pipeline_stream streams: handing a batch to FinalizePool
   POOL_WAIT     pipeline_stream streams: FinalizePool.collect, waiting
@@ -51,6 +54,14 @@ Counts (`PROF.counts[name]`):
   ESC_LANES       a rung chunk's batch (a power of two), summed
   ESC_UNRESOLVED  reads still flagged overflowed when a ladder returns
   DP_SYNC         calls of host_read
+  DP_REPLAY       card dispatches of the device program that replayed its
+                  captured CUDA graph (pipeline._GraphRunner)
+  DP_CAPTURE      card dispatches that ran their shape's program op by op
+                  and then captured it
+  DP_EAGER        card dispatches run op by op with no capture: their
+                  shape's capture failed (or a test asked for it); the
+                  three add up to the card's dispatches, and the CPU
+                  counts none of them
 
 While a torch profiler records, every phase is also a
 `torch.profiler.record_function("fgdp.<PHASE>")` annotation, so a trace of

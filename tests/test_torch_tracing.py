@@ -4,8 +4,8 @@ profiler, the escalation ladder's phases and counts, the stage clock,
 and the finalize pool's phases.
 
 The last test needs the card (marked `cuda`): every wait of the host for
-the card inside a dispatch goes through host_read, and the stage clock
-adds none. This file imports neither jax nor fgdp_tpu, so it also runs
+the card inside a dispatch goes through host_read, the stage clock adds
+none, and a replayed dispatch has none. This file imports neither jax nor fgdp_tpu, so it also runs
 on the card's machine without the conftest:
 
     python -m pytest --noconftest -p no:cacheprovider \\
@@ -211,7 +211,10 @@ def test_card_waits_are_all_counted(dev, lcp):
     on, each dispatch of the device program (a primary batch's and every
     rung's, from its start up to its fetch) warns of as many syncs as
     DP_SYNC counts: every wait of the host for the card there goes
-    through host_read, and the stage clock adds none."""
+    through host_read, and the stage clock adds none. A dispatch that
+    captures its shape, or runs op by op, waits (P1's check of its query
+    lengths, a host_read); a replayed one warns of none and counts
+    none."""
     from fgdp_tpu_torch.io.fastq import parse_fastq_records
     from fgdp_tpu_torch.utils import dna
 
@@ -221,13 +224,12 @@ def test_card_waits_are_all_counted(dev, lcp):
     al = Aligner(pref, FMIndex.build(pref.codes),
                  shapes=BatchShapes(batch_reads=128, transfer_regs=2),
                  lcp=lcp, device=dev)
-    al._device_regs(seqs)                       # build and warm up
-    torch.cuda.synchronize()
     inner = al._run
     seen = []
 
     def run(*a):
         n0 = PROF.counts[DP_SYNC]
+        r0 = PROF.counts["DP_REPLAY"]
         with warnings.catch_warnings(record=True) as w:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -237,14 +239,21 @@ def test_card_waits_are_all_counted(dev, lcp):
                 torch.cuda.set_sync_debug_mode(0)
         syncs = sum("called a synchronizing CUDA operation"
                     in str(x.message) for x in w)
-        seen.append((syncs, PROF.counts[DP_SYNC] - n0))
+        replayed = PROF.counts["DP_REPLAY"] > r0
+        seen.append((replayed, syncs, PROF.counts[DP_SYNC] - n0))
         return buf
 
     al._run = run
     al.stage_ms, al.esc_stage_ms = {}, {}
-    esc0 = al.esc_calls
-    al._device_regs(seqs)
-    assert al.esc_calls > esc0 and len(seen) == 1 + al.esc_calls - esc0
-    assert all(s == d > 0 for s, d in seen), seen
+    for force_eager in (False, False, True):   # capture, replay, op by op
+        al._graphs._force_eager = force_eager
+        esc0, n0 = al.esc_calls, len(seen)
+        al._device_regs(seqs)
+        assert al.esc_calls > esc0
+        assert len(seen) - n0 == 1 + al.esc_calls - esc0
+    al._graphs._force_eager = False
+    assert any(r for r, _, _ in seen) and not all(r for r, _, _ in seen)
+    assert all(s == d == 0 for r, s, d in seen if r), seen
+    assert all(s == d > 0 for r, s, d in seen if not r), seen
     assert set(al.stage_ms) == set(STAGES) and al.stage_ms["seed"] > 0
     assert set(al.esc_stage_ms) == set(STAGES)
